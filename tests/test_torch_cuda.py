@@ -5,11 +5,10 @@ port (not the JAX package), so it runs where the port runs:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
-Tolerances: ``srcs``, ``n_events`` and health words are compared
-exactly; ``times`` within rtol 1e-5 (the kernel is built without fast
-math and without fused multiply-adds, so it is expected to be
-bit-identical, and the replay-only mix, which draws no randomness, is
-held to exact equality)."""
+Tolerance: none.  The kernel is built without fast math and without
+fused multiply-adds and does each operation in the plain version's
+order, so ``srcs``, ``n_events``, health words, the whole carry and
+``times`` are held bit-identical on every lane of every mix."""
 
 import numpy as np
 import pytest
@@ -56,11 +55,37 @@ def _headline(gb):
         gb.add_poisson(rate=1.0, sinks=[i])
 
 
+def _two_opt(gb):
+    # Opt rows 0 and 3 share feed 1; source 5 shares no feed with row 0.
+    gb.add_opt(q=1.0, sinks=[0, 1, 2])
+    gb.add_poisson(rate=1.0, sinks=[0])
+    gb.add_hawkes(l0=0.5, alpha=0.3, beta=1.0, sinks=[1])
+    gb.add_opt(q=0.5, sinks=[1, 3])
+    gb.add_poisson(rate=0.8, sinks=[2, 3])
+    gb.add_poisson(rate=0.6, sinks=[3])
+
+
+def _s32(gb):
+    # S = 32 = MAX_S: a Hawkes source first (the numeric faults poison
+    # source 0), Opt rows at 3, 10, 17 and 31 with two feeds each, and
+    # Poisson walls on one feed each.
+    opt = {3: [3, 4], 10: [2, 5], 17: [4, 6], 31: [0, 7]}
+    for s in range(kernels.MAX_S):
+        if s == 0:
+            gb.add_hawkes(l0=0.5, alpha=0.3, beta=1.0, sinks=[0])
+        elif s in opt:
+            gb.add_opt(q=0.5 + 0.1 * s, sinks=opt[s])
+        else:
+            gb.add_poisson(rate=0.3 + 0.02 * s, sinks=[s % gb.n_sinks])
+
+
 # (fill, n_sinks, end_time, capacity)
 MIXES = {
     "full_mix": (_mix, 5, 15.0, 64),
     "replay": (_replay, 2, 10.0, 16),
     "headline": (_headline, 10, 20.0, 64),
+    "two_opt": (_two_opt, 4, 15.0, 32),
+    "s32": (_s32, 8, 4.0, 64),
 }
 
 
@@ -82,6 +107,18 @@ def _drive_both(name, B, k, device):
     return kern, plain
 
 
+def _assert_bit_identical(kern, plain):
+    (ck, tk, sk, dk), (cp, tp, sp, dp) = kern, plain
+    assert dk == dp
+    assert torch.equal(sk, sp)
+    assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
+    for nm in event_step.CARRY_NAMES:
+        a, b = ck[nm], cp[nm]
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), nm
+
+
 @pytest.mark.parametrize("words,want", VECTORS)
 def test_device_threefry_random123_vectors(card, words, want):
     args = [ttf.to_bits32(torch.tensor([w])).to(card) for w in words]
@@ -101,24 +138,36 @@ def test_device_threefry_matches_plain(card):
     assert torch.equal(ttf.from_bits32(y1.cpu()), p1)
 
 
+# B = 37 and 1001 are multiples of no block width.
 @pytest.mark.parametrize("name,B,k", [("full_mix", 64, 4),
-                                      ("headline", 128, 8)])
+                                      ("headline", 128, 8),
+                                      ("two_opt", 64, 2),
+                                      ("s32", 37, 2),
+                                      ("s32", 1001, 1)])
 def test_event_kernel_matches_plain_version(card, name, B, k):
-    (ck, tk, sk, dk), (cp, tp, sp, dp) = _drive_both(name, B, k, card)
-    assert dk == dp
-    assert torch.equal(sk, sp)
-    for nm in event_step.CARRY_NAMES:
-        if nm in ("t_next", "t", "exc", "exc_t"):
-            torch.testing.assert_close(ck[nm], cp[nm], rtol=1e-5, atol=0)
-        else:
-            assert torch.equal(ck[nm], cp[nm]), nm
-    torch.testing.assert_close(tk, tp, rtol=1e-5, atol=0)
+    _assert_bit_identical(*_drive_both(name, B, k, card))
 
 
 def test_event_kernel_replay_only_bit_identical(card):
     (ck, tk, sk, _), (cp, tp, sp, _) = _drive_both("replay", 32, 1, card)
     assert torch.equal(tk, tp) and torch.equal(sk, sp)
     assert torch.equal(ck["nev"], cp["nev"])
+
+
+@pytest.mark.parametrize("mode,want", [
+    ("nan", numerics.BIT_NONFINITE_TIME),
+    ("inf", numerics.BIT_NONFINITE_STATE),
+])
+def test_poisoned_lane_at_max_s_bit_identical(card, monkeypatch, mode, want):
+    cfg, params, adj = _batch("s32", 101, card)
+    monkeypatch.setenv(faultinject.ENV_FAULT, f"numeric:{mode}@lane7")
+    prep = event_engine.prepare(cfg, params, adj, np.arange(101), 2)
+    kern = event_engine.drive(prep, kernels.launch_event_kernel, 100)
+    plain = event_engine.drive(prep, event_step.run_launch, 100)
+    _assert_bit_identical(kern, plain)
+    health = ttf.from_bits32(kern[0]["health"]).cpu()
+    assert health[7] & want
+    assert int((health != 0).sum()) == 1
 
 
 @pytest.mark.parametrize("mode,want", [

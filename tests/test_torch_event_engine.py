@@ -63,6 +63,20 @@ def _replay():
     return gb
 
 
+def _two_opt():
+    """Opt rows 0 and 3 (not adjacent): both read feed 1, each also reads
+    a feed the other does not, and source 5 shares no feed with row 0,
+    so one (row, source) pair never reacts."""
+    gb = jcfg.GraphBuilder(n_sinks=4, end_time=15.0)
+    gb.add_opt(q=1.0, sinks=[0, 1, 2])
+    gb.add_poisson(rate=1.0, sinks=[0])
+    gb.add_hawkes(l0=0.5, alpha=0.3, beta=1.0, sinks=[1])
+    gb.add_opt(q=0.5, sinks=[1, 3])
+    gb.add_poisson(rate=0.8, sinks=[2, 3])
+    gb.add_poisson(rate=0.6, sinks=[3])
+    return gb
+
+
 def _health_mix():
     gb = jcfg.GraphBuilder(n_sinks=2, end_time=12.0)
     gb.add_opt(q=1.0)
@@ -135,11 +149,13 @@ def assert_lanes_match(lj, lt, exact=False):
 
 
 # (name, builder, capacity, B, k): the headline at S=11/F=10, a Hawkes +
-# piecewise + replay mix, and a multi-chunk, multi-launch run.
+# piecewise + replay mix, a multi-chunk, multi-launch run, and two Opt
+# rows at non-adjacent indices.
 CASES = {
     "headline": (lambda: _headline(10, 20.0), 64, 8, 8),
     "mix": (_mix, 32, 4, 2),
     "multi_chunk": (lambda: _headline(4, 30.0), 16, 3, 2),
+    "two_opt": (_two_opt, 32, 5, 2),
 }
 
 
@@ -176,6 +192,14 @@ def test_multi_chunk_really_spans_launches():
     _, lt = _case("multi_chunk")
     assert lt.dispatches >= 3
     assert int(lt.n_events.max()) > 2 * 16
+
+
+def test_two_opt_case_fires_and_reacts_on_both_rows():
+    _, lt = _case("two_opt")
+    srcs = lt.srcs.numpy()
+    for r in (0, 3):
+        assert (srcs == r).sum() > 0, f"Opt row {r} never posted"
+    assert lt.dispatches >= 2
 
 
 def test_replay_only_bit_identical():
