@@ -34,6 +34,7 @@ measurement of the run (``{"measurements": {...}}``), the kernel table
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.  Without
 CUDA the script exits with code 2 and prints no result."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -478,6 +479,7 @@ def phase_headline(dev):
     parity = compare("phase 5 headline against the plain version", kern,
                      plain)
     bound = bound_for(prep, kern[0], len(k_ms))
+    geom = kernels.geometry(prep.spec, B)
 
     res = {
         "B": B, "F": 10, "T": T, "capacity": cfg.capacity, "k": 8,
@@ -494,7 +496,7 @@ def phase_headline(dev):
         "kernel_with_host_ms_per_launch": kh_ms,
         "kernel_with_host_ms_mean": float(np.mean(kh_ms)),
         "plain_ms_mean": float(np.mean(p_ms)), "bound": bound,
-        "parity": parity,
+        "parity": parity, "geometry": dataclasses.asdict(geom),
     }
     print(f"phase 5 headline: B={B} F=10 T={T} capacity={cfg.capacity} "
           f"k=8: {events} events in {best:.4f} s best of 3 "
@@ -506,6 +508,10 @@ def phase_headline(dev):
           f"{res['mean_top1']:.4f}; posts per lane {res['posts_per_lane']:.2f}; "
           f"mean events per wall {wall.mean():.3f} (100 within 4 sigma "
           f"{4 * se:.3f})")
+    print(f"  launch geometry: {geom.group} thread(s) per lane, "
+          f"{geom.lanes_per_block} lanes = {geom.threads_per_block} threads "
+          f"per block, {geom.blocks} blocks, {geom.smem_bytes} bytes of "
+          f"shared memory per block")
     print(f"  kernel ms per launch on the device {['%.4f' % x for x in k_ms]} "
           f"(mean {res['kernel_ms_mean']:.4f}); with the wrapper's host work "
           f"{['%.4f' % x for x in kh_ms]} (mean "

@@ -135,16 +135,63 @@ struct Carry {
   int32_t* rd_ptr;   // [S, B]
 };
 
+// Dynamic shared memory of a block: one column per lane (thread), words
+// at [slot][s][lane_in_block], so a warp's accesses fall in 32 banks
+// whatever source each thread indexes.  Slots: 0 k0, 1 k1, 2 kind, 3 rate,
+// then one react rate sum per Opt row in opt_mask order.
+constexpr int SLOT_K0 = 0;
+constexpr int SLOT_K1 = 1;
+constexpr int SLOT_KIND = 2;
+constexpr int SLOT_RATE = 3;
+constexpr int SLOT_RS = 4;
+
 __global__ void __launch_bounds__(BLOCK)
 event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
              int32_t* __restrict__ srcs, int B_, int S, int F, int Kr, int Kp,
              int steps, float end_time, uint32_t opt_mask, int flags) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ uint32_t smem[];
+  const int L = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = blockIdx.x * L + tid;
   if (lane >= B_) return;
   const size_t B = static_cast<size_t>(B_);
   const bool has_hawkes = flags & HAS_HAWKES;
   const bool has_rd = flags & HAS_RD;
   const bool has_pw = flags & HAS_PW;
+  auto sh = [&](int slot, int s) -> uint32_t& {
+    return smem[(slot * S + s) * L + tid];
+  };
+  auto shf = [&](int slot, int s) -> float& {
+    return reinterpret_cast<float&>(sh(slot, s));
+  };
+
+  // ---- lane constants, once per launch ----
+  for (int s = 0; s < S; ++s) {
+    const size_t i = s * B + lane;
+    sh(SLOT_K0, s) = p.k0[i];
+    sh(SLOT_K1, s) = p.k1[i];
+    sh(SLOT_KIND, s) = static_cast<uint32_t>(p.kind[i]);
+    shf(SLOT_RATE, s) = p.rate[i];
+  }
+  // Each Opt row's react rate against every source s:
+  // rs = sum_f adj[r,f]*adj[s,f]*sqrtf(ssink[f]/q_r), summed in f order.
+  {
+    int j = 0;
+    for (uint32_t m = opt_mask; m != 0u; m &= m - 1u, ++j) {
+      const int r = __ffs(m) - 1;
+      const float qr = jmax(p.q[r * B + lane], TINY);
+      for (int s = 0; s < S; ++s) shf(SLOT_RS + j, s) = 0.f;
+      for (int f = 0; f < F; ++f) {
+        const float w = sqrtf(p.ssink[f * B + lane] / qr);
+        const float arf = p.adj[(r * static_cast<size_t>(F) + f) * B + lane];
+        for (int s = 0; s < S; ++s) {
+          const float aff =
+              arf * p.adj[(s * static_cast<size_t>(F) + f) * B + lane];
+          shf(SLOT_RS + j, s) = shf(SLOT_RS + j, s) + aff * w;
+        }
+      }
+    }
+  }
 
   float t_next[RQ_MAX_S];
   uint32_t ctr[RQ_MAX_S];
@@ -198,15 +245,15 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
     const int s = s_star;
     const size_t sb = s * B + lane;
     uint32_t d0, d1;
-    rq::threefry2x32(p.k0[sb], p.k1[sb], ctr[s], 0u, d0, d1);
+    rq::threefry2x32(sh(SLOT_K0, s), sh(SLOT_K1, s), ctr[s], 0u, d0, d1);
     const float e = rq::exponential_from_bits(d0);
-    const int kd = p.kind[sb];
+    const int kd = static_cast<int>(sh(SLOT_KIND, s));
 
     // ---- per-kind resample (Opt and uncompiled kinds stay +inf) ----
     float t_new = f_inf();
     float exc_new = 0.f;
     if (kd == KIND_POISSON) {
-      const float r = p.rate[sb];
+      const float r = shf(SLOT_RATE, s);
       t_new = (r > 0.f) ? tmin + e / jmax(r, TINY) : f_inf();
     } else if (has_hawkes && kd == KIND_HAWKES) {
       const float beta = p.beta[sb];
@@ -237,19 +284,13 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
     if (has_rd && kd == KIND_REALDATA) rd_ptr[s] += 1;
 
     // ---- react: each Opt row spawns a superposition clock ----
-    for (uint32_t m = opt_mask; m != 0u; m &= m - 1u) {
+    int j = 0;
+    for (uint32_t m = opt_mask; m != 0u; m &= m - 1u, ++j) {
       const int r = __ffs(m) - 1;
       if (r == s) continue;
-      const size_t rb = r * B + lane;
-      const float qr = jmax(p.q[rb], TINY);
-      float rs = 0.f;
-      for (int f = 0; f < F; ++f) {
-        const float aff = p.adj[(r * static_cast<size_t>(F) + f) * B + lane] *
-                          p.adj[(s * static_cast<size_t>(F) + f) * B + lane];
-        rs += aff * sqrtf(p.ssink[f * B + lane] / qr);
-      }
+      const float rs = shf(SLOT_RS + j, s);
       if (rs > 0.f) {
-        rq::threefry2x32(p.k0[rb], p.k1[rb], ctr[r], 1u, d0, d1);
+        rq::threefry2x32(sh(SLOT_K0, r), sh(SLOT_K1, r), ctr[r], 1u, d0, d1);
         const float cand = tmin + rq::exponential_from_bits(d0) / jmax(rs, TINY);
         t_next[r] = jmin(t_next[r], cand);
         ctr[r] += 1u;
@@ -315,8 +356,11 @@ int rq_event_kernel_launch(void* const* params, void* const* carry_in,
                            void* const* carry_out, void* times, void* srcs,
                            int B, int S, int F, int Kr, int Kp, int steps,
                            float end_time, unsigned int opt_mask, int flags,
-                           void* stream) {
-  if (S < 1 || S > RQ_MAX_S || B < 1 || steps < 0)
+                           int group, int threads_per_block, int blocks,
+                           int smem_bytes, void* stream) {
+  if (S < 1 || S > RQ_MAX_S || B < 1 || steps < 0 || group != 1 ||
+      threads_per_block < 1 || threads_per_block > BLOCK || blocks < 1 ||
+      smem_bytes < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.kind = static_cast<const int32_t*>(params[0]);
@@ -332,8 +376,14 @@ int rq_event_kernel_launch(void* const* params, void* const* carry_in,
   p.rd_times = static_cast<const float*>(params[10]);
   p.pw_times = static_cast<const float*>(params[11]);
   p.pw_rates = static_cast<const float*>(params[12]);
-  const int grid = (B + BLOCK - 1) / BLOCK;
-  event_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        event_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  event_kernel<<<blocks, threads_per_block, smem_bytes,
+                 static_cast<cudaStream_t>(stream)>>>(
       p, carry_from(carry_in), carry_from(carry_out),
       static_cast<float*>(times), static_cast<int32_t*>(srcs), B, S, F, Kr,
       Kp, steps, end_time, opt_mask, flags);

@@ -15,6 +15,7 @@ on a failed launch (``cudaGetLastError``), and count their launches in
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -28,8 +29,9 @@ import torch
 from .event_step import CARRY_NAMES, PARAM_NAMES, KernelSpec
 
 __all__ = ["MAX_S", "NVCC_FLAGS", "BUILD_DIR", "build", "LAUNCHES",
-           "reset_launch_counts", "check_kernel_shape",
-           "launch_event_kernel", "threefry_on_device"]
+           "reset_launch_counts", "check_kernel_shape", "Geometry",
+           "geometry", "launch_event_kernel", "launch_with_geometry",
+           "threefry_on_device"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -43,6 +45,11 @@ MAX_S = 32
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")
+
+#: Shared memory one block may take (232,448 bytes on Hopper), and the
+#: widest block the kernel is compiled for (BLOCK in the kernel).
+MAX_SMEM_BYTES = 227 * 1024
+MAX_THREADS_PER_BLOCK = 128
 
 #: Launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else.
@@ -120,6 +127,7 @@ def _lib() -> ctypes.CDLL:
         vp, vp, vp, vp, vp,                     # params, carry in/out, log
         ci, ci, ci, ci, ci, ci,                 # B, S, F, Kr, Kp, steps
         ctypes.c_float, ctypes.c_uint, ci,      # end_time, opt_mask, flags
+        ci, ci, ci, ci,                         # the launch geometry
         vp]                                     # stream
     lib.rq_event_kernel_launch.restype = ci
     lib.rq_threefry_launch.argtypes = [vp] * 6 + [ci, vp]
@@ -151,6 +159,31 @@ def check_kernel_shape(spec: KernelSpec) -> None:
             f"exceeds the kernel's int32 step count")
 
 
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """How one launch spreads over the card: ``group`` threads per lane,
+    ``lanes_per_block`` lanes in each of ``blocks`` blocks, and
+    ``smem_bytes`` of dynamic shared memory per block."""
+
+    group: int
+    lanes_per_block: int
+    threads_per_block: int
+    blocks: int
+    smem_bytes: int
+
+
+def geometry(spec: KernelSpec, B: int) -> Geometry:
+    """The launch geometry of ``spec`` over ``B`` lanes.  Each lane keeps
+    its per-source constants (k0, k1, kind, rate) and one react rate sum
+    per (Opt row, source) in shared memory: ``(4 + n_opt) * S`` words."""
+    words = (4 + len(spec.opt_rows)) * spec.S
+    lanes = MAX_THREADS_PER_BLOCK
+    while lanes > 1 and lanes * words * 4 > MAX_SMEM_BYTES:
+        lanes //= 2
+    return Geometry(group=1, lanes_per_block=lanes, threads_per_block=lanes,
+                    blocks=-(-B // lanes), smem_bytes=lanes * words * 4)
+
+
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
              shape: tuple, device: torch.device) -> None:
     if t.device != device:
@@ -175,6 +208,13 @@ def launch_event_kernel(spec: KernelSpec, params: Dict[str, torch.Tensor],
     of ``spec.capacity`` steps from ``carry``.  Takes and returns what
     ``event_step.run_launch`` does: ``(carry_out, times [k*cap, B] f32,
     srcs [k*cap, B] i32)``; the inputs are not modified."""
+    return launch_with_geometry(
+        spec, params, carry, geometry(spec, params["rate"].shape[-1]))
+
+
+def launch_with_geometry(spec: KernelSpec, params: Dict[str, torch.Tensor],
+                         carry: Dict[str, torch.Tensor], geom: Geometry):
+    """:func:`launch_event_kernel` with the launch geometry given."""
     check_kernel_shape(spec)
     dev = params["rate"].device
     if dev.type != "cuda":
@@ -222,7 +262,8 @@ def launch_event_kernel(spec: KernelSpec, params: Dict[str, torch.Tensor],
         ctypes.cast(ci_arr, ctypes.c_void_p),
         ctypes.cast(co_arr, ctypes.c_void_p),
         times.data_ptr(), srcs.data_ptr(), B, S, F, Kr, Kp, steps,
-        float(spec.end_time), opt_mask, _flags(spec), stream)
+        float(spec.end_time), opt_mask, _flags(spec), geom.group,
+        geom.threads_per_block, geom.blocks, geom.smem_bytes, stream)
     _check(rc, "event kernel")
     LAUNCHES["event_kernel"] += 1
     return out, times, srcs
