@@ -138,12 +138,18 @@ struct Carry {
 // Dynamic shared memory of a block: one column per lane (thread), words
 // at [slot][s][lane_in_block], so a warp's accesses fall in 32 banks
 // whatever source each thread indexes.  Slots: 0 k0, 1 k1, 2 kind, 3 rate,
-// then one react rate sum per Opt row in opt_mask order.
+// the per-source state 4 t_next, 5 ctr, 6 exc, 7 exc_t, 8 rd_ptr, then
+// one react rate sum per Opt row in opt_mask order.
 constexpr int SLOT_K0 = 0;
 constexpr int SLOT_K1 = 1;
 constexpr int SLOT_KIND = 2;
 constexpr int SLOT_RATE = 3;
-constexpr int SLOT_RS = 4;
+constexpr int SLOT_TNEXT = 4;
+constexpr int SLOT_CTR = 5;
+constexpr int SLOT_EXC = 6;
+constexpr int SLOT_EXCT = 7;
+constexpr int SLOT_RDPTR = 8;
+constexpr int SLOT_RS = 9;
 
 __global__ void __launch_bounds__(BLOCK)
 event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
@@ -193,18 +199,18 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
     }
   }
 
-  float t_next[RQ_MAX_S];
-  uint32_t ctr[RQ_MAX_S];
-  float exc[RQ_MAX_S];
-  float exc_t[RQ_MAX_S];
-  int32_t rd_ptr[RQ_MAX_S];
+  auto t_next = [&](int s) -> float& { return shf(SLOT_TNEXT, s); };
+  auto ctr = [&](int s) -> uint32_t& { return sh(SLOT_CTR, s); };
+  auto exc = [&](int s) -> float& { return shf(SLOT_EXC, s); };
+  auto exc_t = [&](int s) -> float& { return shf(SLOT_EXCT, s); };
+  auto rd_ptr = [&](int s) -> uint32_t& { return sh(SLOT_RDPTR, s); };
   for (int s = 0; s < S; ++s) {
     const size_t i = s * B + lane;
-    t_next[s] = in.t_next[i];
-    ctr[s] = in.ctr[i];
-    exc[s] = in.exc[i];
-    exc_t[s] = in.exc_t[i];
-    rd_ptr[s] = in.rd_ptr[i];
+    t_next(s) = in.t_next[i];
+    ctr(s) = in.ctr[i];
+    exc(s) = in.exc[i];
+    exc_t(s) = in.exc_t[i];
+    rd_ptr(s) = static_cast<uint32_t>(in.rd_ptr[i]);
   }
   float t = in.t[lane];
   int32_t nev = in.nev[lane];
@@ -212,11 +218,11 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
 
   for (int step = 0; step < steps; ++step) {
     // ---- argmin commit (lowest-index tie-break) + lane gating ----
-    float tmin = t_next[0];
+    float tmin = t_next(0);
     int s_star = 0;
     bool nan_t = is_nan(tmin);
     for (int s = 1; s < S; ++s) {
-      const float v = t_next[s];
+      const float v = t_next(s);
       nan_t |= is_nan(v);
       if (v < tmin) {
         tmin = v;
@@ -245,7 +251,7 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
     const int s = s_star;
     const size_t sb = s * B + lane;
     uint32_t d0, d1;
-    rq::threefry2x32(sh(SLOT_K0, s), sh(SLOT_K1, s), ctr[s], 0u, d0, d1);
+    rq::threefry2x32(sh(SLOT_K0, s), sh(SLOT_K1, s), ctr(s), 0u, d0, d1);
     const float e = rq::exponential_from_bits(d0);
     const int kd = static_cast<int>(sh(SLOT_KIND, s));
 
@@ -257,10 +263,10 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
       t_new = (r > 0.f) ? tmin + e / jmax(r, TINY) : f_inf();
     } else if (has_hawkes && kd == KIND_HAWKES) {
       const float beta = p.beta[sb];
-      exc_new = exc[s] * safe_exp(-beta * (tmin - exc_t[s])) + p.alpha[sb];
+      exc_new = exc(s) * safe_exp(-beta * (tmin - exc_t(s))) + p.alpha[sb];
       t_new = tmin + hawkes_invert(e, p.l0[sb], exc_new, beta);
     } else if (has_rd && kd == KIND_REALDATA) {
-      const int ptr1 = rd_ptr[s] + 1;
+      const int ptr1 = static_cast<int>(rd_ptr(s)) + 1;
       t_new = (ptr1 < Kr) ? p.rd_times[(s * static_cast<size_t>(Kr) + ptr1) * B + lane]
                           : f_inf();
     } else if (has_pw && kd == KIND_PIECEWISE) {
@@ -274,14 +280,14 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
       bits |= BIT_NONFINITE_TIME;
       t_new = f_inf();
     }
-    t_next[s] = t_new;
-    ctr[s] += 1u;
+    t_next(s) = t_new;
+    ctr(s) += 1u;
     if (has_hawkes && kd == KIND_HAWKES) {
       if (!((exc_new - exc_new) == 0.f)) bits |= BIT_NONFINITE_STATE;
-      exc[s] = exc_new;
-      exc_t[s] = tmin;
+      exc(s) = exc_new;
+      exc_t(s) = tmin;
     }
-    if (has_rd && kd == KIND_REALDATA) rd_ptr[s] += 1;
+    if (has_rd && kd == KIND_REALDATA) rd_ptr(s) += 1u;
 
     // ---- react: each Opt row spawns a superposition clock ----
     int j = 0;
@@ -290,10 +296,10 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
       if (r == s) continue;
       const float rs = shf(SLOT_RS + j, s);
       if (rs > 0.f) {
-        rq::threefry2x32(sh(SLOT_K0, r), sh(SLOT_K1, r), ctr[r], 1u, d0, d1);
+        rq::threefry2x32(sh(SLOT_K0, r), sh(SLOT_K1, r), ctr(r), 1u, d0, d1);
         const float cand = tmin + rq::exponential_from_bits(d0) / jmax(rs, TINY);
-        t_next[r] = jmin(t_next[r], cand);
-        ctr[r] += 1u;
+        t_next(r) = jmin(t_next(r), cand);
+        ctr(r) += 1u;
       }
     }
 
@@ -307,11 +313,11 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
 
   for (int s = 0; s < S; ++s) {
     const size_t i = s * B + lane;
-    out.t_next[i] = t_next[s];
-    out.ctr[i] = ctr[s];
-    out.exc[i] = exc[s];
-    out.exc_t[i] = exc_t[s];
-    out.rd_ptr[i] = rd_ptr[s];
+    out.t_next[i] = t_next(s);
+    out.ctr[i] = ctr(s);
+    out.exc[i] = exc(s);
+    out.exc_t[i] = exc_t(s);
+    out.rd_ptr[i] = static_cast<int32_t>(rd_ptr(s));
   }
   out.t[lane] = t;
   out.nev[lane] = nev;

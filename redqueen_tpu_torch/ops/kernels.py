@@ -174,9 +174,10 @@ class Geometry:
 
 def geometry(spec: KernelSpec, B: int) -> Geometry:
     """The launch geometry of ``spec`` over ``B`` lanes.  Each lane keeps
-    its per-source constants (k0, k1, kind, rate) and one react rate sum
-    per (Opt row, source) in shared memory: ``(4 + n_opt) * S`` words."""
-    words = (4 + len(spec.opt_rows)) * spec.S
+    its per-source constants (k0, k1, kind, rate), its per-source state
+    (t_next, ctr, exc, exc_t, rd_ptr) and one react rate sum per (Opt
+    row, source) in shared memory: ``(9 + n_opt) * S`` words."""
+    words = (9 + len(spec.opt_rows)) * spec.S
     lanes = MAX_THREADS_PER_BLOCK
     while lanes > 1 and lanes * words * 4 > MAX_SMEM_BYTES:
         lanes //= 2
