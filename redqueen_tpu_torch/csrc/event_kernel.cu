@@ -135,104 +135,151 @@ struct Carry {
   int32_t* rd_ptr;   // [S, B]
 };
 
-// Dynamic shared memory of a block: one column per lane (thread), words
-// at [slot][s][lane_in_block], so a warp's accesses fall in 32 banks
-// whatever source each thread indexes.  Slots: 0 k0, 1 k1, 2 kind, 3 rate,
-// the per-source state 4 t_next, 5 ctr, 6 exc, 7 exc_t, 8 rd_ptr, then
-// one react rate sum per Opt row in opt_mask order.
-constexpr int SLOT_K0 = 0;
-constexpr int SLOT_K1 = 1;
-constexpr int SLOT_KIND = 2;
-constexpr int SLOT_RATE = 3;
-constexpr int SLOT_TNEXT = 4;
-constexpr int SLOT_CTR = 5;
-constexpr int SLOT_EXC = 6;
-constexpr int SLOT_EXCT = 7;
-constexpr int SLOT_RDPTR = 8;
-constexpr int SLOT_RS = 9;
+// Dynamic shared memory of a block: one column of words per thread, at
+// [slot][i][thread], so the 32 threads of a warp always fall in 32 banks.
+// A thread's column holds, for each source it owns (the i-th in s order,
+// i < ns): its index, constants (k0, k1, kind, rate) and state (t_next,
+// ctr, exc, exc_t, rd_ptr); then the react table: for the jl-th Opt row r
+// it owns and every source s, rs = sum_f adj[r,f]*adj[s,f]*sqrtf(ssink[f]/q_r).
+constexpr int SLOT_SRC = 0;
+constexpr int SLOT_K0 = 1;
+constexpr int SLOT_K1 = 2;
+constexpr int SLOT_KIND = 3;
+constexpr int SLOT_RATE = 4;
+constexpr int SLOT_TNEXT = 5;
+constexpr int SLOT_CTR = 6;
+constexpr int SLOT_EXC = 7;
+constexpr int SLOT_EXCT = 8;
+constexpr int SLOT_RDPTR = 9;
+constexpr int N_SLOTS = 10;
+// (s << 8 | owner) keys of the argmin; no source sorts last.
+constexpr int NO_SOURCE = 0x7fffffff;
 
+// NS: a power of two at least the sources any thread owns (ns).
+template <int NS>
 __global__ void __launch_bounds__(BLOCK)
 event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
              int32_t* __restrict__ srcs, int B_, int S, int F, int Kr, int Kp,
-             int steps, float end_time, uint32_t opt_mask, int flags) {
+             int steps, float end_time, uint32_t opt_mask, int flags, int G,
+             int ns, uint64_t own_lo, uint64_t own_hi) {
   extern __shared__ uint32_t smem[];
-  const int L = blockDim.x;
+  const int T = blockDim.x;
   const int tid = threadIdx.x;
-  const int lane = blockIdx.x * L + tid;
-  if (lane >= B_) return;
+  const int lg = __ffs(G) - 1;  // G is a power of two
+  const int g = tid & (G - 1);  // this thread's rank in its lane's group
+  const int lane = (blockIdx.x * T + tid) >> lg;
+  if (lane >= B_) return;  // whole groups: G divides the block
+  // This lane's group: G consecutive threads of one warp.
+  const unsigned gmask = ((G == 32) ? 0xffffffffu : ((1u << G) - 1u))
+                         << ((tid & 31) & ~(G - 1));
   const size_t B = static_cast<size_t>(B_);
   const bool has_hawkes = flags & HAS_HAWKES;
   const bool has_rd = flags & HAS_RD;
   const bool has_pw = flags & HAS_PW;
-  auto sh = [&](int slot, int s) -> uint32_t& {
-    return smem[(slot * S + s) * L + tid];
+  uint32_t* col = smem + tid;
+  auto sh = [&](int slot, int i) -> uint32_t& {
+    return col[(slot * ns + i) * T];
   };
-  auto shf = [&](int slot, int s) -> float& {
-    return reinterpret_cast<float&>(sh(slot, s));
+  auto shf = [&](int slot, int i) -> float& {
+    return reinterpret_cast<float&>(sh(slot, i));
+  };
+  auto rs = [&](int jl, int s) -> float& {
+    return reinterpret_cast<float&>(col[(N_SLOTS * ns + jl * S + s) * T]);
   };
 
-  // ---- lane constants, once per launch ----
+  // ---- the owned sources' constants and state, once per launch ----
+  int n_own = 0;
+  uint32_t own_opt = 0u;  // bit i: owned source i is an Opt row
   for (int s = 0; s < S; ++s) {
-    const size_t i = s * B + lane;
-    sh(SLOT_K0, s) = p.k0[i];
-    sh(SLOT_K1, s) = p.k1[i];
-    sh(SLOT_KIND, s) = static_cast<uint32_t>(p.kind[i]);
-    shf(SLOT_RATE, s) = p.rate[i];
+    // Source s belongs to the thread in nibble s of (own_hi:own_lo).
+    const uint64_t own = s < 16 ? own_lo >> (4 * s) : own_hi >> (4 * s - 64);
+    if (static_cast<int>(own & 0xfu) != g) continue;
+    const int i = n_own++;
+    const size_t x = s * B + lane;
+    sh(SLOT_SRC, i) = static_cast<uint32_t>(s);
+    sh(SLOT_K0, i) = p.k0[x];
+    sh(SLOT_K1, i) = p.k1[x];
+    sh(SLOT_KIND, i) = static_cast<uint32_t>(p.kind[x]);
+    shf(SLOT_RATE, i) = p.rate[x];
+    shf(SLOT_TNEXT, i) = in.t_next[x];
+    sh(SLOT_CTR, i) = in.ctr[x];
+    shf(SLOT_EXC, i) = in.exc[x];
+    shf(SLOT_EXCT, i) = in.exc_t[x];
+    sh(SLOT_RDPTR, i) = static_cast<uint32_t>(in.rd_ptr[x]);
+    if ((opt_mask >> s) & 1u) own_opt |= 1u << i;
   }
-  // Each Opt row's react rate against every source s:
-  // rs = sum_f adj[r,f]*adj[s,f]*sqrtf(ssink[f]/q_r), summed in f order.
+  // ---- the react table of the owned Opt rows: f outer, so each rs is
+  // summed in f order from 0, as the plain version's per-event sum ----
   {
-    int j = 0;
-    for (uint32_t m = opt_mask; m != 0u; m &= m - 1u, ++j) {
-      const int r = __ffs(m) - 1;
+    int jl = 0;
+    for (uint32_t m = own_opt; m != 0u; m &= m - 1u, ++jl) {
+      const int r = static_cast<int>(sh(SLOT_SRC, __ffs(m) - 1));
       const float qr = jmax(p.q[r * B + lane], TINY);
-      for (int s = 0; s < S; ++s) shf(SLOT_RS + j, s) = 0.f;
+      for (int s = 0; s < S; ++s) rs(jl, s) = 0.f;
       for (int f = 0; f < F; ++f) {
         const float w = sqrtf(p.ssink[f * B + lane] / qr);
         const float arf = p.adj[(r * static_cast<size_t>(F) + f) * B + lane];
         for (int s = 0; s < S; ++s) {
           const float aff =
               arf * p.adj[(s * static_cast<size_t>(F) + f) * B + lane];
-          shf(SLOT_RS + j, s) = shf(SLOT_RS + j, s) + aff * w;
+          rs(jl, s) = rs(jl, s) + aff * w;
         }
       }
     }
   }
-
-  auto t_next = [&](int s) -> float& { return shf(SLOT_TNEXT, s); };
-  auto ctr = [&](int s) -> uint32_t& { return sh(SLOT_CTR, s); };
-  auto exc = [&](int s) -> float& { return shf(SLOT_EXC, s); };
-  auto exc_t = [&](int s) -> float& { return shf(SLOT_EXCT, s); };
-  auto rd_ptr = [&](int s) -> uint32_t& { return sh(SLOT_RDPTR, s); };
-  for (int s = 0; s < S; ++s) {
-    const size_t i = s * B + lane;
-    t_next(s) = in.t_next[i];
-    ctr(s) = in.ctr[i];
-    exc(s) = in.exc[i];
-    exc_t(s) = in.exc_t[i];
-    rd_ptr(s) = static_cast<uint32_t>(in.rd_ptr[i]);
-  }
+  // The lane's clock, event count and health, held alike by the group.
   float t = in.t[lane];
   int32_t nev = in.nev[lane];
   uint32_t health = in.health[lane];
 
   for (int step = 0; step < steps; ++step) {
-    // ---- argmin commit (lowest-index tie-break) + lane gating ----
-    float tmin = t_next(0);
-    int s_star = 0;
-    bool nan_t = is_nan(tmin);
-    for (int s = 1; s < S; ++s) {
-      const float v = t_next(s);
-      nan_t |= is_nan(v);
-      if (v < tmin) {
-        tmin = v;
-        s_star = s;
+    // ---- argmin commit (lowest-index tie-break) + lane gating: each
+    // thread over its own sources, then across the group.  The owned
+    // clocks are read at once and reduced by a pairwise tree whose left
+    // side holds the lower slots (lower s), so a tie keeps the lower one;
+    // empty slots are +inf and sort after every owned one. ----
+    float v[NS];
+    int ix[NS];
+    bool nan_own = false;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const float x = shf(SLOT_TNEXT, i < n_own ? i : 0);
+      v[i] = i < n_own ? x : f_inf();
+      ix[i] = i;
+      nan_own |= is_nan(v[i]);
+    }
+#pragma unroll
+    for (int w = 1; w < NS; w <<= 1) {
+#pragma unroll
+      for (int i = 0; i + w < NS; i += 2 * w) {
+        if (v[i + w] < v[i]) {
+          v[i] = v[i + w];
+          ix[i] = ix[i + w];
+        }
       }
     }
-    if (nan_t) {  // jnp.min keeps the NaN, and no source equals it
-      tmin = f_nan();
-      s_star = S;
+    const int i_min = ix[0];
+    float tmin = nan_own ? f_nan() : v[0];
+    int s_star = i_min;  // one thread per lane owns every source in order
+    int owner = 0;
+    if (G > 1) {
+      int key = n_own > 0 ? static_cast<int>(sh(SLOT_SRC, i_min) << 8) | g
+                          : NO_SOURCE;
+      for (int off = 1; off < G; off <<= 1) {
+        const float ov = __shfl_xor_sync(gmask, tmin, off);
+        const int ok = __shfl_xor_sync(gmask, key, off);
+        if (is_nan(tmin) || is_nan(ov)) {
+          tmin = f_nan();
+        } else if (ov < tmin || (ov == tmin && ok < key)) {
+          tmin = ov;
+          key = ok;
+        }
+      }
+      s_star = key >> 8;
+      owner = key & 0xff;
     }
+    const bool nan_t = is_nan(tmin);
+    if (nan_t) s_star = S;  // jnp.min keeps the NaN, and no source equals it
     const bool healthy = health == 0u;
     const bool regressed = tmin < t;
     const bool valid = (tmin <= end_time) && (s_star < S) && healthy &&
@@ -241,87 +288,149 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
     const size_t row = static_cast<size_t>(step) * B + lane;
     if (!valid) {
       // Absorbing step: the draw would not move any counter or clock.
-      times[row] = f_inf();
-      srcs[row] = -1;
+      if (g == 0) {
+        times[row] = f_inf();
+        srcs[row] = -1;
+      }
       health |= bits;  // ungated, as in the TPU kernel
       continue;
     }
 
-    // ---- the fired source's draw on its (key; ctr, 0) stream ----
-    const int s = s_star;
-    const size_t sb = s * B + lane;
-    uint32_t d0, d1;
-    rq::threefry2x32(sh(SLOT_K0, s), sh(SLOT_K1, s), ctr(s), 0u, d0, d1);
-    const float e = rq::exponential_from_bits(d0);
-    const int kd = static_cast<int>(sh(SLOT_KIND, s));
-
-    // ---- per-kind resample (Opt and uncompiled kinds stay +inf) ----
-    float t_new = f_inf();
-    float exc_new = 0.f;
-    if (kd == KIND_POISSON) {
-      const float r = shf(SLOT_RATE, s);
-      t_new = (r > 0.f) ? tmin + e / jmax(r, TINY) : f_inf();
-    } else if (has_hawkes && kd == KIND_HAWKES) {
-      const float beta = p.beta[sb];
-      exc_new = exc(s) * safe_exp(-beta * (tmin - exc_t(s))) + p.alpha[sb];
-      t_new = tmin + hawkes_invert(e, p.l0[sb], exc_new, beta);
-    } else if (has_rd && kd == KIND_REALDATA) {
-      const int ptr1 = static_cast<int>(rd_ptr(s)) + 1;
-      t_new = (ptr1 < Kr) ? p.rd_times[(s * static_cast<size_t>(Kr) + ptr1) * B + lane]
-                          : f_inf();
-    } else if (has_pw && kd == KIND_PIECEWISE) {
-      const size_t base = s * static_cast<size_t>(Kp) * B + lane;
-      t_new = piecewise_invert(e, tmin, p.pw_times + base, p.pw_rates + base,
-                               Kp, B);
-    }
-
-    // ---- write-back: never store a NaN time, flag the lane ----
-    if (is_nan(t_new)) {
-      bits |= BIT_NONFINITE_TIME;
-      t_new = f_inf();
-    }
-    t_next(s) = t_new;
-    ctr(s) += 1u;
-    if (has_hawkes && kd == KIND_HAWKES) {
-      if (!((exc_new - exc_new) == 0.f)) bits |= BIT_NONFINITE_STATE;
-      exc(s) = exc_new;
-      exc_t(s) = tmin;
-    }
-    if (has_rd && kd == KIND_REALDATA) rd_ptr(s) += 1u;
-
-    // ---- react: each Opt row spawns a superposition clock ----
-    int j = 0;
-    for (uint32_t m = opt_mask; m != 0u; m &= m - 1u, ++j) {
-      const int r = __ffs(m) - 1;
-      if (r == s) continue;
-      const float rs = shf(SLOT_RS + j, s);
-      if (rs > 0.f) {
-        rq::threefry2x32(sh(SLOT_K0, r), sh(SLOT_K1, r), ctr(r), 1u, d0, d1);
-        const float cand = tmin + rq::exponential_from_bits(d0) / jmax(rs, TINY);
-        t_next(r) = jmin(t_next(r), cand);
-        ctr(r) += 1u;
+    // ---- this thread's draws: the fire if it owns s_star (its own
+    // argmin), and one react per owned Opt row r != s_star with rs > 0.
+    // They touch disjoint sources.  The first two, a (the fire, or else
+    // a react) and b (a react), are made side by side in one straight
+    // block so that their chains overlap; a thread with fewer runs the
+    // same instructions on a copy of a's inputs and drops the result. ----
+    const int i_fire = (owner == g) ? i_min : -1;
+    uint32_t jobs = 0u;  // the reacts, by owned slot
+    {
+      int jl = 0;
+      for (uint32_t m = own_opt; m != 0u; m &= m - 1u, ++jl) {
+        const int i = __ffs(m) - 1;
+        if (i != i_fire && rs(jl, s_star) > 0.f) jobs |= 1u << i;
       }
     }
+    // The rate sum of owned Opt slot i's react against s_star.
+    auto rs_of = [&](int i) -> float {
+      return rs(__popc(own_opt & ((1u << i) - 1u)), s_star);
+    };
+    int ia = i_fire;
+    if (ia < 0 && jobs != 0u) {
+      ia = __ffs(jobs) - 1;
+      jobs &= jobs - 1u;
+    }
+    int ib = -1;
+    if (jobs != 0u) {
+      ib = __ffs(jobs) - 1;
+      jobs &= jobs - 1u;
+    }
+    const bool fire = ia >= 0 && ia == i_fire;
+    const int ja = ia >= 0 ? ia : 0;
+    const int jb = ib >= 0 ? ib : ja;
+    // Everything the two draws and their write-backs read, read first.
+    const uint32_t ka0 = sh(SLOT_K0, ja), ka1 = sh(SLOT_K1, ja);
+    const uint32_t kb0 = sh(SLOT_K0, jb), kb1 = sh(SLOT_K1, jb);
+    const uint32_t ca = sh(SLOT_CTR, ja), cb = sh(SLOT_CTR, jb);
+    const float ta = shf(SLOT_TNEXT, ja), tb = shf(SLOT_TNEXT, jb);
+    const int kd = static_cast<int>(sh(SLOT_KIND, ja));
+    const float rate = shf(SLOT_RATE, ja);
+    // One division serves a Poisson fire (e / rate) and a react (e / rs).
+    const float dena = (ia >= 0 && !fire) ? rs_of(ia) : rate;
+    const float denb = ib >= 0 ? rs_of(ib) : rate;
+    // The fire on its (key; ctr, 0) stream, a react on (key; ctr, 1).
+    uint32_t da0, da1, db0, db1;
+    rq::threefry2x32(ka0, ka1, ca, fire ? 0u : 1u, da0, da1);
+    rq::threefry2x32(kb0, kb1, cb, 1u, db0, db1);
+    const float ea = rq::exponential_from_bits(da0);
+    const float eb = rq::exponential_from_bits(db0);
+    const float cand_a = tmin + ea / jmax(dena, TINY);
+    const float cand_b = tmin + eb / jmax(denb, TINY);
+    // A react: an Opt row's superposition clock.
+    if (ib >= 0) {
+      shf(SLOT_TNEXT, ib) = jmin(tb, cand_b);
+      sh(SLOT_CTR, ib) = cb + 1u;
+    }
+    if (ia >= 0 && !fire) {
+      shf(SLOT_TNEXT, ia) = jmin(ta, cand_a);
+      sh(SLOT_CTR, ia) = ca + 1u;
+    }
+    // Reacts left over (a thread owning three or more jobs), one by one.
+    while (jobs != 0u) {
+      const int i = __ffs(jobs) - 1;
+      jobs &= jobs - 1u;
+      uint32_t d0, d1;
+      rq::threefry2x32(sh(SLOT_K0, i), sh(SLOT_K1, i), sh(SLOT_CTR, i), 1u,
+                       d0, d1);
+      const float cand =
+          tmin + rq::exponential_from_bits(d0) / jmax(rs_of(i), TINY);
+      shf(SLOT_TNEXT, i) = jmin(shf(SLOT_TNEXT, i), cand);
+      sh(SLOT_CTR, i) += 1u;
+    }
+
+    uint32_t fire_bits = 0u;
+    if (fire) {
+      // ---- per-kind resample (Opt and uncompiled kinds stay +inf) ----
+      const int s = s_star;
+      const size_t sb = s * B + lane;
+      float t_new = (kd == KIND_POISSON && rate > 0.f) ? cand_a : f_inf();
+      float exc_new = 0.f;
+      if (has_hawkes && kd == KIND_HAWKES) {
+        const float beta = p.beta[sb];
+        exc_new = shf(SLOT_EXC, ia) *
+                      safe_exp(-beta * (tmin - shf(SLOT_EXCT, ia))) +
+                  p.alpha[sb];
+        t_new = tmin + hawkes_invert(ea, p.l0[sb], exc_new, beta);
+      } else if (has_rd && kd == KIND_REALDATA) {
+        const int ptr1 = static_cast<int>(sh(SLOT_RDPTR, ia)) + 1;
+        t_new = (ptr1 < Kr)
+                    ? p.rd_times[(s * static_cast<size_t>(Kr) + ptr1) * B + lane]
+                    : f_inf();
+      } else if (has_pw && kd == KIND_PIECEWISE) {
+        const size_t base = s * static_cast<size_t>(Kp) * B + lane;
+        t_new = piecewise_invert(ea, tmin, p.pw_times + base,
+                                 p.pw_rates + base, Kp, B);
+      }
+
+      // ---- write-back: never store a NaN time, flag the lane ----
+      if (is_nan(t_new)) {
+        fire_bits |= BIT_NONFINITE_TIME;
+        t_new = f_inf();
+      }
+      shf(SLOT_TNEXT, ia) = t_new;
+      sh(SLOT_CTR, ia) = ca + 1u;
+      if (has_hawkes && kd == KIND_HAWKES) {
+        if (!((exc_new - exc_new) == 0.f)) fire_bits |= BIT_NONFINITE_STATE;
+        shf(SLOT_EXC, ia) = exc_new;
+        shf(SLOT_EXCT, ia) = tmin;
+      }
+      if (has_rd && kd == KIND_REALDATA) sh(SLOT_RDPTR, ia) += 1u;
+    }
+    bits |= G > 1 ? __shfl_sync(gmask, fire_bits, owner, G) : fire_bits;
 
     // ---- emit the event, advance the clock ----
-    times[row] = tmin;
-    srcs[row] = s;
+    if (g == 0) {
+      times[row] = tmin;
+      srcs[row] = s_star;
+    }
     t = tmin;
     nev += 1;
     health |= bits;
   }
 
-  for (int s = 0; s < S; ++s) {
-    const size_t i = s * B + lane;
-    out.t_next[i] = t_next(s);
-    out.ctr[i] = ctr(s);
-    out.exc[i] = exc(s);
-    out.exc_t[i] = exc_t(s);
-    out.rd_ptr[i] = static_cast<int32_t>(rd_ptr(s));
+  for (int i = 0; i < n_own; ++i) {
+    const size_t x = sh(SLOT_SRC, i) * B + lane;
+    out.t_next[x] = shf(SLOT_TNEXT, i);
+    out.ctr[x] = sh(SLOT_CTR, i);
+    out.exc[x] = shf(SLOT_EXC, i);
+    out.exc_t[x] = shf(SLOT_EXCT, i);
+    out.rd_ptr[x] = static_cast<int32_t>(sh(SLOT_RDPTR, i));
   }
-  out.t[lane] = t;
-  out.nev[lane] = nev;
-  out.health[lane] = health;
+  if (g == 0) {
+    out.t[lane] = t;
+    out.nev[lane] = nev;
+    out.health[lane] = health;
+  }
 }
 
 __global__ void threefry_kernel(const uint32_t* k0, const uint32_t* k1,
@@ -362,12 +471,23 @@ int rq_event_kernel_launch(void* const* params, void* const* carry_in,
                            void* const* carry_out, void* times, void* srcs,
                            int B, int S, int F, int Kr, int Kp, int steps,
                            float end_time, unsigned int opt_mask, int flags,
-                           int group, int threads_per_block, int blocks,
-                           int smem_bytes, void* stream) {
-  if (S < 1 || S > RQ_MAX_S || B < 1 || steps < 0 || group != 1 ||
-      threads_per_block < 1 || threads_per_block > BLOCK || blocks < 1 ||
-      smem_bytes < 0)
+                           int group, unsigned long long own_lo,
+                           unsigned long long own_hi, int slots_per_thread,
+                           int threads_per_block, int blocks, int smem_bytes,
+                           void* stream) {
+  if (S < 1 || S > RQ_MAX_S || B < 1 || steps < 0 || group < 1 ||
+      group > 16 || (group & (group - 1)) != 0 || threads_per_block < 32 ||
+      threads_per_block > BLOCK || threads_per_block % 32 != 0 ||
+      blocks < 1 || static_cast<long long>(blocks) * threads_per_block <
+                        static_cast<long long>(B) * group ||
+      slots_per_thread < 1 || slots_per_thread > S || smem_bytes < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  for (int s = 0; s < S; ++s) {
+    const unsigned long long own =
+        s < 16 ? own_lo >> (4 * s) : own_hi >> (4 * s - 64);
+    if (static_cast<int>(own & 0xfu) >= group)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params p;
   p.kind = static_cast<const int32_t*>(params[0]);
   p.rate = static_cast<const float*>(params[1]);
@@ -382,17 +502,29 @@ int rq_event_kernel_launch(void* const* params, void* const* carry_in,
   p.rd_times = static_cast<const float*>(params[10]);
   p.pw_times = static_cast<const float*>(params[11]);
   p.pw_rates = static_cast<const float*>(params[12]);
+  decltype(&event_kernel<2>) kernel;
+  if (slots_per_thread <= 2) {
+    kernel = event_kernel<2>;
+  } else if (slots_per_thread <= 4) {
+    kernel = event_kernel<4>;
+  } else if (slots_per_thread <= 8) {
+    kernel = event_kernel<8>;
+  } else if (slots_per_thread <= 16) {
+    kernel = event_kernel<16>;
+  } else {
+    kernel = event_kernel<32>;
+  }
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        event_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  event_kernel<<<blocks, threads_per_block, smem_bytes,
-                 static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, threads_per_block, smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(
       p, carry_from(carry_in), carry_from(carry_out),
       static_cast<float*>(times), static_cast<int32_t*>(srcs), B, S, F, Kr,
-      Kp, steps, end_time, opt_mask, flags);
+      Kp, steps, end_time, opt_mask, flags, group, slots_per_thread,
+      static_cast<uint64_t>(own_lo), static_cast<uint64_t>(own_hi));
   return static_cast<int>(cudaGetLastError());
 }
 
