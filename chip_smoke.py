@@ -102,8 +102,6 @@ PARITY_B = {"full mix": 256, "replay-only": 64, "two Opt rows": 256,
 # batch size, exactly, as (events, mean time-in-top-1, posts per lane):
 # the kernel is bit-identical to its plain version.
 HEADLINE_RESULT = {10_000: (12_300_664, 80.3196, 230.30)}
-# Threads per lane tried at the headline.
-GROUPS = (1, 2, 4, 8)
 # The kernel's mean ms per launch at the headline before its redesign
 # (PERF.md, PR 1's sixth chip call).
 MS_BEFORE = 1.676
@@ -483,18 +481,6 @@ def phase_headline(dev):
     bound = bound_for(prep, kern[0], len(k_ms))
     geom = kernels.geometry(prep.spec, B)
 
-    # The same inputs at each group width G (threads per lane), in turns
-    # (1, 2, 4, 8, 8, 4, 2, 1), each run bit-identical to the default's.
-    sweep = {g: [] for g in GROUPS}
-    for g in GROUPS + GROUPS[::-1]:
-        geom_g = kernels.geometry(prep.spec, B, group=g)
-        run = event_engine.drive(prep, timed_on_device(
-            lambda sp, pa, ca: kernels.launch_with_geometry(sp, pa, ca,
-                                                            geom_g),
-            sweep[g]), mc)
-        compare(f"phase 5 headline at G={g} against G={geom.group}", run,
-                kern)
-    sweep_ms = {g: float(np.mean(v)) for g, v in sweep.items()}
     res = {
         "B": B, "F": 10, "T": T, "capacity": cfg.capacity, "k": 8,
         "max_chunks": mc, "component_build_s": build_s,
@@ -511,7 +497,6 @@ def phase_headline(dev):
         "kernel_with_host_ms_mean": float(np.mean(kh_ms)),
         "plain_ms_mean": float(np.mean(p_ms)), "bound": bound,
         "parity": parity, "geometry": dataclasses.asdict(geom),
-        "group_sweep_ms_mean": sweep_ms,
     }
     print(f"phase 5 headline: B={B} F=10 T={T} capacity={cfg.capacity} "
           f"k=8: {events} events in {best:.4f} s best of 3 "
@@ -523,12 +508,9 @@ def phase_headline(dev):
           f"{res['mean_top1']:.4f}; posts per lane {res['posts_per_lane']:.2f}; "
           f"mean events per wall {wall.mean():.3f} (100 within 4 sigma "
           f"{4 * se:.3f})")
-    print(f"  launch geometry: {geom.group} thread(s) per lane, "
-          f"{geom.lanes_per_block} lanes = {geom.threads_per_block} threads "
-          f"per block, {geom.blocks} blocks, {geom.smem_bytes} bytes of "
-          f"shared memory per block; kernel mean ms per launch on the "
-          f"device by G (two runs each, in turns): "
-          f"{', '.join(f'G={g}: {m:.4f}' for g, m in sweep_ms.items())}")
+    print(f"  launch geometry: G = 1 thread per lane, "
+          f"{geom.lanes_per_block} lanes per block, {geom.blocks} blocks, "
+          f"{geom.smem_bytes} bytes of shared memory per block")
     print(f"  kernel ms per launch on the device {['%.4f' % x for x in k_ms]} "
           f"(mean {res['kernel_ms_mean']:.4f}); with the wrapper's host work "
           f"{['%.4f' % x for x in kh_ms]} (mean "

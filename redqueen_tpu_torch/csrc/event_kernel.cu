@@ -8,23 +8,37 @@
 // piecewise-constant rates.  The plain PyTorch version, with the same
 // arithmetic in the same order, is redqueen_tpu_torch/ops/event_step.py.
 //
-// Design.  One thread per lane (component); neighbouring threads take
-// neighbouring lanes, so every [.., B] parameter load and every row of the
-// times/srcs log is coalesced, and the lane count needs no padding (the
-// kernel masks lane < B).  Each thread keeps its per-source state (t_next,
-// ctr, exc, exc_t, rd_ptr) in local arrays bounded by RQ_MAX_S for all
-// k * capacity steps, which replaces the Pallas grid's sequential chunk
-// axis and its revisited carry blocks; the carry is written back once at
-// the end.  Parameters are read by direct indexing: no one-hot sums.
+// Design.  One thread per lane (component), LANES lanes to a block: one
+// warp, the finest grain the block scheduler spreads over the SMs.  At the
+// start of a launch each thread copies its lane's per-source constants
+// (k0, k1, kind, rate) and state (t_next, ctr, exc, exc_t, rd_ptr) into
+// shared memory and computes its react table there once: for each Opt row
+// r_j (in opt_mask order) and source s, rs[j][s] = sum_f adj[r_j,f] *
+// adj[s,f] * sqrtf(ssink[f] / q_r), in the plain version's f order.  The
+// event loop reads rs[j][s_star] where the plain version sums over F.
+// Shared memory holds one column of words per lane, word w of lane i at
+// smem[w * LANES + i], so a warp's 32 threads always hit 32 banks whatever
+// source each indexes; source s takes words s*stride .. s*stride+stride-1
+// of the column, so every field sits at a compile-time offset from the
+// source's base.  Neighbouring threads take neighbouring lanes, so every
+// [.., B] load and every row of the times/srcs log is coalesced; the lane
+// count needs no padding (the kernel masks lane < B).  The carry is
+// written back once at the end.
+//
+// A step is a chain of dependent operations, so the kernel shortens the
+// chain rather than adding threads (a lane spread over G threads was
+// measured slower at every G > 1: see PERF.md).  The argmin over the
+// clocks, a pairwise tree, runs at the end of a step that fired; a step
+// that absorbs changes no clock and keeps it.  The fired source's draw and
+// the first Opt row's react draw are independent (the react reads ctr[r]
+// with r != s_star) and run as two interleaved threefry chains; further
+// Opt rows draw two at a time.  No draw is made before its use is known.
 //
 // What bounds it.  At the headline shape (B = 10,000 lanes, S = 11,
-// F = 10) one thread per lane is 10,000 threads, about 2.4 warps per SM on
-// the 132 SMs of an H100: far too few to hide latency.  Each event is a
-// serial chain of dependent instructions (the argmin over S, a threefry
-// block, log1pf, the resample, the Opt react with a second threefry block),
-// and that chain sets the pace, not the roughly 8 bytes per lane-step of
-// log traffic.  A design that spreads a lane's work over more threads (or
-// runs many more lanes per card) is a later change.
+// F = 10) 10,000 threads are about 2.4 warps per SM: the step's chain
+// (argmin tree, shared-memory loads, threefry, log1pf, an IEEE division)
+// sets the pace, not the issue rate and not the roughly 8 bytes per
+// lane-step of log traffic.
 //
 // Numerics.  Built without --use_fast_math and with --fmad=false (see
 // ops/kernels.py): IEEE division and sqrtf, expf and log1pf from the CUDA
@@ -42,6 +56,7 @@
 #include "threefry.cuh"
 
 #define RQ_MAX_S 32
+#define RQ_LANES 32
 
 namespace {
 
@@ -53,12 +68,26 @@ constexpr uint32_t BIT_NONFINITE_TIME = 1u;
 constexpr uint32_t BIT_NONFINITE_STATE = 2u;
 constexpr int NEWTON_ITERS = 24;
 constexpr float TINY = 1e-30f;
-constexpr int BLOCK = 128;
+constexpr int LANES = RQ_LANES;  // lanes (threads) per block
+constexpr int BLOCK = 128;       // threads per block of the threefry check
 
 // Specialisation flags (the kinds the component has).
 constexpr int HAS_HAWKES = 1;
 constexpr int HAS_RD = 2;
 constexpr int HAS_PW = 4;
+
+// A source's words in its lane's column: constants, state, then one react
+// rate sum per Opt row.
+constexpr int W_K0 = 0;
+constexpr int W_K1 = 1;
+constexpr int W_KIND = 2;
+constexpr int W_RATE = 3;
+constexpr int W_TNEXT = 4;
+constexpr int W_CTR = 5;
+constexpr int W_EXC = 6;
+constexpr int W_EXCT = 7;
+constexpr int W_RDPTR = 8;
+constexpr int W_RS = 9;
 
 __device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float f_nan() { return __int_as_float(0x7fc00000); }
@@ -108,6 +137,24 @@ __device__ float piecewise_invert(float e, float t_from, const float* knots,
   return f_inf();
 }
 
+// Exp(1) draws from N independent threefry blocks (key; ctr, stream),
+// their chains interleaved.
+template <int N>
+__device__ __forceinline__ void exp_draws(const uint32_t (&k0)[N],
+                                          const uint32_t (&k1)[N],
+                                          const uint32_t (&ctr)[N],
+                                          uint32_t stream0, float (&e)[N]) {
+  uint32_t x0[N], x1[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    x0[n] = ctr[n];
+    x1[n] = n == 0 ? stream0 : 1u;
+  }
+  rq::threefry2x32_n<N>(k0, k1, x0, x1);
+#pragma unroll
+  for (int n = 0; n < N; ++n) e[n] = rq::exponential_from_bits(x0[n]);
+}
+
 struct Params {
   const int32_t* kind;      // [S, B]
   const float* rate;        // [S, B]
@@ -135,302 +182,227 @@ struct Carry {
   int32_t* rd_ptr;   // [S, B]
 };
 
-// Dynamic shared memory of a block: one column of words per thread, at
-// [slot][i][thread], so the 32 threads of a warp always fall in 32 banks.
-// A thread's column holds, for each source it owns (the i-th in s order,
-// i < ns): its index, constants (k0, k1, kind, rate) and state (t_next,
-// ctr, exc, exc_t, rd_ptr); then the react table: for the jl-th Opt row r
-// it owns and every source s, rs = sum_f adj[r,f]*adj[s,f]*sqrtf(ssink[f]/q_r).
-constexpr int SLOT_SRC = 0;
-constexpr int SLOT_K0 = 1;
-constexpr int SLOT_K1 = 2;
-constexpr int SLOT_KIND = 3;
-constexpr int SLOT_RATE = 4;
-constexpr int SLOT_TNEXT = 5;
-constexpr int SLOT_CTR = 6;
-constexpr int SLOT_EXC = 7;
-constexpr int SLOT_EXCT = 8;
-constexpr int SLOT_RDPTR = 9;
-constexpr int N_SLOTS = 10;
-// (s << 8 | owner) keys of the argmin; no source sorts last.
-constexpr int NO_SOURCE = 0x7fffffff;
-
-// NS: a power of two at least the sources any thread owns (ns).
+// NS: a power of two at least S, the width of the argmin tree.
 template <int NS>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(LANES)
 event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
              int32_t* __restrict__ srcs, int B_, int S, int F, int Kr, int Kp,
-             int steps, float end_time, uint32_t opt_mask, int flags, int G,
-             int ns, uint64_t own_lo, uint64_t own_hi) {
+             int steps, float end_time, uint32_t opt_mask, int flags) {
   extern __shared__ uint32_t smem[];
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  const int lg = __ffs(G) - 1;  // G is a power of two
-  const int g = tid & (G - 1);  // this thread's rank in its lane's group
-  const int lane = (blockIdx.x * T + tid) >> lg;
-  if (lane >= B_) return;  // whole groups: G divides the block
-  // This lane's group: G consecutive threads of one warp.
-  const unsigned gmask = ((G == 32) ? 0xffffffffu : ((1u << G) - 1u))
-                         << ((tid & 31) & ~(G - 1));
+  const int lane = blockIdx.x * LANES + threadIdx.x;
+  if (lane >= B_) return;
   const size_t B = static_cast<size_t>(B_);
   const bool has_hawkes = flags & HAS_HAWKES;
   const bool has_rd = flags & HAS_RD;
   const bool has_pw = flags & HAS_PW;
-  uint32_t* col = smem + tid;
-  auto sh = [&](int slot, int i) -> uint32_t& {
-    return col[(slot * ns + i) * T];
+  // Words per source in a column, times LANES.
+  const int stride = (W_RS + __popc(opt_mask)) * LANES;
+  uint32_t* const col = smem + threadIdx.x;
+  auto w = [&](int s, int word) -> uint32_t& {
+    return col[s * stride + word * LANES];
   };
-  auto shf = [&](int slot, int i) -> float& {
-    return reinterpret_cast<float&>(sh(slot, i));
-  };
-  auto rs = [&](int jl, int s) -> float& {
-    return reinterpret_cast<float&>(col[(N_SLOTS * ns + jl * S + s) * T]);
+  auto wf = [&](int s, int word) -> float& {
+    return reinterpret_cast<float&>(w(s, word));
   };
 
-  // ---- the owned sources' constants and state, once per launch ----
-  int n_own = 0;
-  uint32_t own_opt = 0u;  // bit i: owned source i is an Opt row
+  // ---- the lane's constants, state and react table, once per launch ----
   for (int s = 0; s < S; ++s) {
-    // Source s belongs to the thread in nibble s of (own_hi:own_lo).
-    const uint64_t own = s < 16 ? own_lo >> (4 * s) : own_hi >> (4 * s - 64);
-    if (static_cast<int>(own & 0xfu) != g) continue;
-    const int i = n_own++;
     const size_t x = s * B + lane;
-    sh(SLOT_SRC, i) = static_cast<uint32_t>(s);
-    sh(SLOT_K0, i) = p.k0[x];
-    sh(SLOT_K1, i) = p.k1[x];
-    sh(SLOT_KIND, i) = static_cast<uint32_t>(p.kind[x]);
-    shf(SLOT_RATE, i) = p.rate[x];
-    shf(SLOT_TNEXT, i) = in.t_next[x];
-    sh(SLOT_CTR, i) = in.ctr[x];
-    shf(SLOT_EXC, i) = in.exc[x];
-    shf(SLOT_EXCT, i) = in.exc_t[x];
-    sh(SLOT_RDPTR, i) = static_cast<uint32_t>(in.rd_ptr[x]);
-    if ((opt_mask >> s) & 1u) own_opt |= 1u << i;
+    w(s, W_K0) = p.k0[x];
+    w(s, W_K1) = p.k1[x];
+    w(s, W_KIND) = static_cast<uint32_t>(p.kind[x]);
+    wf(s, W_RATE) = p.rate[x];
+    wf(s, W_TNEXT) = in.t_next[x];
+    w(s, W_CTR) = in.ctr[x];
+    wf(s, W_EXC) = in.exc[x];
+    wf(s, W_EXCT) = in.exc_t[x];
+    w(s, W_RDPTR) = static_cast<uint32_t>(in.rd_ptr[x]);
   }
-  // ---- the react table of the owned Opt rows: f outer, so each rs is
-  // summed in f order from 0, as the plain version's per-event sum ----
   {
-    int jl = 0;
-    for (uint32_t m = own_opt; m != 0u; m &= m - 1u, ++jl) {
-      const int r = static_cast<int>(sh(SLOT_SRC, __ffs(m) - 1));
+    // f outer, so each rs is summed in f order from 0, as the plain
+    // version's per-event sum.
+    int j = 0;
+    for (uint32_t m = opt_mask; m != 0u; m &= m - 1u, ++j) {
+      const int r = __ffs(m) - 1;
       const float qr = jmax(p.q[r * B + lane], TINY);
-      for (int s = 0; s < S; ++s) rs(jl, s) = 0.f;
+      for (int s = 0; s < S; ++s) wf(s, W_RS + j) = 0.f;
       for (int f = 0; f < F; ++f) {
-        const float w = sqrtf(p.ssink[f * B + lane] / qr);
+        const float wt = sqrtf(p.ssink[f * B + lane] / qr);
         const float arf = p.adj[(r * static_cast<size_t>(F) + f) * B + lane];
         for (int s = 0; s < S; ++s) {
           const float aff =
               arf * p.adj[(s * static_cast<size_t>(F) + f) * B + lane];
-          rs(jl, s) = rs(jl, s) + aff * w;
+          wf(s, W_RS + j) = wf(s, W_RS + j) + aff * wt;
         }
       }
     }
   }
-  // The lane's clock, event count and health, held alike by the group.
+
+  // ---- argmin commit (lowest-index tie-break): all clocks read at once,
+  // reduced by a pairwise tree whose left side holds the lower indices,
+  // so a tie keeps the lower one; padding (i >= S) is +inf and sorts
+  // after every source.  A NaN clock gives NaN and s_star = S. ----
+  float tmin;
+  int s_star;
+  auto argmin = [&]() {
+    float v[NS];
+    int ix[NS];
+    bool nan = false;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const float x = wf(i < S ? i : 0, W_TNEXT);
+      v[i] = i < S ? x : f_inf();
+      ix[i] = i;
+      nan |= is_nan(v[i]);
+    }
+#pragma unroll
+    for (int d = 1; d < NS; d <<= 1) {
+#pragma unroll
+      for (int i = 0; i + d < NS; i += 2 * d) {
+        if (v[i + d] < v[i]) {
+          v[i] = v[i + d];
+          ix[i] = ix[i + d];
+        }
+      }
+    }
+    tmin = nan ? f_nan() : v[0];
+    s_star = nan ? S : ix[0];
+  };
+
   float t = in.t[lane];
   int32_t nev = in.nev[lane];
   uint32_t health = in.health[lane];
+  argmin();
 
   for (int step = 0; step < steps; ++step) {
-    // ---- argmin commit (lowest-index tie-break) + lane gating: each
-    // thread over its own sources, then across the group.  The owned
-    // clocks are read at once and reduced by a pairwise tree whose left
-    // side holds the lower slots (lower s), so a tie keeps the lower one;
-    // empty slots are +inf and sort after every owned one. ----
-    float v[NS];
-    int ix[NS];
-    bool nan_own = false;
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const float x = shf(SLOT_TNEXT, i < n_own ? i : 0);
-      v[i] = i < n_own ? x : f_inf();
-      ix[i] = i;
-      nan_own |= is_nan(v[i]);
-    }
-#pragma unroll
-    for (int w = 1; w < NS; w <<= 1) {
-#pragma unroll
-      for (int i = 0; i + w < NS; i += 2 * w) {
-        if (v[i + w] < v[i]) {
-          v[i] = v[i + w];
-          ix[i] = ix[i + w];
-        }
-      }
-    }
-    const int i_min = ix[0];
-    float tmin = nan_own ? f_nan() : v[0];
-    int s_star = i_min;  // one thread per lane owns every source in order
-    int owner = 0;
-    if (G > 1) {
-      int key = n_own > 0 ? static_cast<int>(sh(SLOT_SRC, i_min) << 8) | g
-                          : NO_SOURCE;
-      for (int off = 1; off < G; off <<= 1) {
-        const float ov = __shfl_xor_sync(gmask, tmin, off);
-        const int ok = __shfl_xor_sync(gmask, key, off);
-        if (is_nan(tmin) || is_nan(ov)) {
-          tmin = f_nan();
-        } else if (ov < tmin || (ov == tmin && ok < key)) {
-          tmin = ov;
-          key = ok;
-        }
-      }
-      s_star = key >> 8;
-      owner = key & 0xff;
-    }
+    // ---- lane gating ----
     const bool nan_t = is_nan(tmin);
-    if (nan_t) s_star = S;  // jnp.min keeps the NaN, and no source equals it
     const bool healthy = health == 0u;
     const bool regressed = tmin < t;
     const bool valid = (tmin <= end_time) && (s_star < S) && healthy &&
                        !nan_t && !regressed;
-    uint32_t bits = (healthy && (nan_t || regressed)) ? BIT_NONFINITE_TIME : 0u;
     const size_t row = static_cast<size_t>(step) * B + lane;
     if (!valid) {
-      // Absorbing step: the draw would not move any counter or clock.
-      if (g == 0) {
-        times[row] = f_inf();
-        srcs[row] = -1;
-      }
-      health |= bits;  // ungated, as in the TPU kernel
+      // Absorbing: no clock moves, so the argmin stands.
+      times[row] = f_inf();
+      srcs[row] = -1;
+      health |= (healthy && (nan_t || regressed)) ? BIT_NONFINITE_TIME : 0u;
       continue;
     }
 
-    // ---- this thread's draws: the fire if it owns s_star (its own
-    // argmin), and one react per owned Opt row r != s_star with rs > 0.
-    // They touch disjoint sources.  The first two, a (the fire, or else
-    // a react) and b (a react), are made side by side in one straight
-    // block so that their chains overlap; a thread with fewer runs the
-    // same instructions on a copy of a's inputs and drops the result. ----
-    const int i_fire = (owner == g) ? i_min : -1;
-    uint32_t jobs = 0u;  // the reacts, by owned slot
-    {
-      int jl = 0;
-      for (uint32_t m = own_opt; m != 0u; m &= m - 1u, ++jl) {
-        const int i = __ffs(m) - 1;
-        if (i != i_fire && rs(jl, s_star) > 0.f) jobs |= 1u << i;
+    // ---- the fired source's draw on (key; ctr, 0) beside the first Opt
+    // row's react draw on (key; ctr, 1); then the other Opt rows' reacts,
+    // two at a time.  A react touches only its own row r != s_star. ----
+    const int s = s_star;
+    const uint32_t ctr_s = w(s, W_CTR);
+    const int kd = static_cast<int>(w(s, W_KIND));
+    const float rate = wf(s, W_RATE);
+    // Opt row r (ordinal j) reacts to s with rs[j][s] when rs > 0.
+    auto react = [&](int r, int j, float e) {
+      const float rs = wf(s, W_RS + j);
+      if (r != s && rs > 0.f) {
+        wf(r, W_TNEXT) = jmin(wf(r, W_TNEXT), tmin + e / jmax(rs, TINY));
+        w(r, W_CTR) += 1u;
       }
-    }
-    // The rate sum of owned Opt slot i's react against s_star.
-    auto rs_of = [&](int i) -> float {
-      return rs(__popc(own_opt & ((1u << i) - 1u)), s_star);
     };
-    int ia = i_fire;
-    if (ia < 0 && jobs != 0u) {
-      ia = __ffs(jobs) - 1;
-      jobs &= jobs - 1u;
+    uint32_t m = opt_mask;
+    float e_fire;
+    if (m != 0u) {
+      const int r = __ffs(m) - 1;
+      m &= m - 1u;
+      const uint32_t k0[2] = {w(s, W_K0), w(r, W_K0)};
+      const uint32_t k1[2] = {w(s, W_K1), w(r, W_K1)};
+      const uint32_t c[2] = {ctr_s, w(r, W_CTR)};
+      float e[2];
+      exp_draws<2>(k0, k1, c, 0u, e);
+      e_fire = e[0];
+      react(r, 0, e[1]);
+    } else {
+      const uint32_t k0[1] = {w(s, W_K0)}, k1[1] = {w(s, W_K1)};
+      const uint32_t c[1] = {ctr_s};
+      float e[1];
+      exp_draws<1>(k0, k1, c, 0u, e);
+      e_fire = e[0];
     }
-    int ib = -1;
-    if (jobs != 0u) {
-      ib = __ffs(jobs) - 1;
-      jobs &= jobs - 1u;
-    }
-    const bool fire = ia >= 0 && ia == i_fire;
-    const int ja = ia >= 0 ? ia : 0;
-    const int jb = ib >= 0 ? ib : ja;
-    // Everything the two draws and their write-backs read, read first.
-    const uint32_t ka0 = sh(SLOT_K0, ja), ka1 = sh(SLOT_K1, ja);
-    const uint32_t kb0 = sh(SLOT_K0, jb), kb1 = sh(SLOT_K1, jb);
-    const uint32_t ca = sh(SLOT_CTR, ja), cb = sh(SLOT_CTR, jb);
-    const float ta = shf(SLOT_TNEXT, ja), tb = shf(SLOT_TNEXT, jb);
-    const int kd = static_cast<int>(sh(SLOT_KIND, ja));
-    const float rate = shf(SLOT_RATE, ja);
-    // One division serves a Poisson fire (e / rate) and a react (e / rs).
-    const float dena = (ia >= 0 && !fire) ? rs_of(ia) : rate;
-    const float denb = ib >= 0 ? rs_of(ib) : rate;
-    // The fire on its (key; ctr, 0) stream, a react on (key; ctr, 1).
-    uint32_t da0, da1, db0, db1;
-    rq::threefry2x32(ka0, ka1, ca, fire ? 0u : 1u, da0, da1);
-    rq::threefry2x32(kb0, kb1, cb, 1u, db0, db1);
-    const float ea = rq::exponential_from_bits(da0);
-    const float eb = rq::exponential_from_bits(db0);
-    const float cand_a = tmin + ea / jmax(dena, TINY);
-    const float cand_b = tmin + eb / jmax(denb, TINY);
-    // A react: an Opt row's superposition clock.
-    if (ib >= 0) {
-      shf(SLOT_TNEXT, ib) = jmin(tb, cand_b);
-      sh(SLOT_CTR, ib) = cb + 1u;
-    }
-    if (ia >= 0 && !fire) {
-      shf(SLOT_TNEXT, ia) = jmin(ta, cand_a);
-      sh(SLOT_CTR, ia) = ca + 1u;
-    }
-    // Reacts left over (a thread owning three or more jobs), one by one.
-    while (jobs != 0u) {
-      const int i = __ffs(jobs) - 1;
-      jobs &= jobs - 1u;
-      uint32_t d0, d1;
-      rq::threefry2x32(sh(SLOT_K0, i), sh(SLOT_K1, i), sh(SLOT_CTR, i), 1u,
-                       d0, d1);
-      const float cand =
-          tmin + rq::exponential_from_bits(d0) / jmax(rs_of(i), TINY);
-      shf(SLOT_TNEXT, i) = jmin(shf(SLOT_TNEXT, i), cand);
-      sh(SLOT_CTR, i) += 1u;
+    for (int j = 1; m != 0u; j += 2) {
+      const int ra = __ffs(m) - 1;
+      m &= m - 1u;
+      if (m != 0u) {
+        const int rb = __ffs(m) - 1;
+        m &= m - 1u;
+        const uint32_t k0[2] = {w(ra, W_K0), w(rb, W_K0)};
+        const uint32_t k1[2] = {w(ra, W_K1), w(rb, W_K1)};
+        const uint32_t c[2] = {w(ra, W_CTR), w(rb, W_CTR)};
+        float e[2];
+        exp_draws<2>(k0, k1, c, 1u, e);
+        react(ra, j, e[0]);
+        react(rb, j + 1, e[1]);
+      } else {
+        const uint32_t k0[1] = {w(ra, W_K0)}, k1[1] = {w(ra, W_K1)};
+        const uint32_t c[1] = {w(ra, W_CTR)};
+        float e[1];
+        exp_draws<1>(k0, k1, c, 1u, e);
+        react(ra, j, e[0]);
+      }
     }
 
-    uint32_t fire_bits = 0u;
-    if (fire) {
-      // ---- per-kind resample (Opt and uncompiled kinds stay +inf) ----
-      const int s = s_star;
-      const size_t sb = s * B + lane;
-      float t_new = (kd == KIND_POISSON && rate > 0.f) ? cand_a : f_inf();
-      float exc_new = 0.f;
-      if (has_hawkes && kd == KIND_HAWKES) {
-        const float beta = p.beta[sb];
-        exc_new = shf(SLOT_EXC, ia) *
-                      safe_exp(-beta * (tmin - shf(SLOT_EXCT, ia))) +
-                  p.alpha[sb];
-        t_new = tmin + hawkes_invert(ea, p.l0[sb], exc_new, beta);
-      } else if (has_rd && kd == KIND_REALDATA) {
-        const int ptr1 = static_cast<int>(sh(SLOT_RDPTR, ia)) + 1;
-        t_new = (ptr1 < Kr)
-                    ? p.rd_times[(s * static_cast<size_t>(Kr) + ptr1) * B + lane]
-                    : f_inf();
-      } else if (has_pw && kd == KIND_PIECEWISE) {
-        const size_t base = s * static_cast<size_t>(Kp) * B + lane;
-        t_new = piecewise_invert(ea, tmin, p.pw_times + base,
-                                 p.pw_rates + base, Kp, B);
-      }
-
-      // ---- write-back: never store a NaN time, flag the lane ----
-      if (is_nan(t_new)) {
-        fire_bits |= BIT_NONFINITE_TIME;
-        t_new = f_inf();
-      }
-      shf(SLOT_TNEXT, ia) = t_new;
-      sh(SLOT_CTR, ia) = ca + 1u;
-      if (has_hawkes && kd == KIND_HAWKES) {
-        if (!((exc_new - exc_new) == 0.f)) fire_bits |= BIT_NONFINITE_STATE;
-        shf(SLOT_EXC, ia) = exc_new;
-        shf(SLOT_EXCT, ia) = tmin;
-      }
-      if (has_rd && kd == KIND_REALDATA) sh(SLOT_RDPTR, ia) += 1u;
+    // ---- per-kind resample (Opt and uncompiled kinds stay +inf) ----
+    const size_t sb = s * B + lane;
+    float t_new = (kd == KIND_POISSON && rate > 0.f)
+                      ? tmin + e_fire / jmax(rate, TINY)
+                      : f_inf();
+    float exc_new = 0.f;
+    if (has_hawkes && kd == KIND_HAWKES) {
+      const float beta = p.beta[sb];
+      exc_new = wf(s, W_EXC) * safe_exp(-beta * (tmin - wf(s, W_EXCT))) +
+                p.alpha[sb];
+      t_new = tmin + hawkes_invert(e_fire, p.l0[sb], exc_new, beta);
+    } else if (has_rd && kd == KIND_REALDATA) {
+      const int ptr1 = static_cast<int>(w(s, W_RDPTR)) + 1;
+      t_new = (ptr1 < Kr)
+                  ? p.rd_times[(s * static_cast<size_t>(Kr) + ptr1) * B + lane]
+                  : f_inf();
+    } else if (has_pw && kd == KIND_PIECEWISE) {
+      const size_t base = s * static_cast<size_t>(Kp) * B + lane;
+      t_new = piecewise_invert(e_fire, tmin, p.pw_times + base,
+                               p.pw_rates + base, Kp, B);
     }
-    bits |= G > 1 ? __shfl_sync(gmask, fire_bits, owner, G) : fire_bits;
 
-    // ---- emit the event, advance the clock ----
-    if (g == 0) {
-      times[row] = tmin;
-      srcs[row] = s_star;
+    // ---- write-back: never store a NaN time, flag the lane ----
+    uint32_t bits = 0u;
+    if (is_nan(t_new)) {
+      bits |= BIT_NONFINITE_TIME;
+      t_new = f_inf();
     }
+    wf(s, W_TNEXT) = t_new;
+    w(s, W_CTR) = ctr_s + 1u;
+    if (has_hawkes && kd == KIND_HAWKES) {
+      if (!((exc_new - exc_new) == 0.f)) bits |= BIT_NONFINITE_STATE;
+      wf(s, W_EXC) = exc_new;
+      wf(s, W_EXCT) = tmin;
+    }
+    if (has_rd && kd == KIND_REALDATA) w(s, W_RDPTR) += 1u;
+
+    // ---- emit the event, advance the clock, next argmin ----
+    times[row] = tmin;
+    srcs[row] = s;
     t = tmin;
     nev += 1;
     health |= bits;
+    argmin();
   }
 
-  for (int i = 0; i < n_own; ++i) {
-    const size_t x = sh(SLOT_SRC, i) * B + lane;
-    out.t_next[x] = shf(SLOT_TNEXT, i);
-    out.ctr[x] = sh(SLOT_CTR, i);
-    out.exc[x] = shf(SLOT_EXC, i);
-    out.exc_t[x] = shf(SLOT_EXCT, i);
-    out.rd_ptr[x] = static_cast<int32_t>(sh(SLOT_RDPTR, i));
+  for (int s = 0; s < S; ++s) {
+    const size_t x = s * B + lane;
+    out.t_next[x] = wf(s, W_TNEXT);
+    out.ctr[x] = w(s, W_CTR);
+    out.exc[x] = wf(s, W_EXC);
+    out.exc_t[x] = wf(s, W_EXCT);
+    out.rd_ptr[x] = static_cast<int32_t>(w(s, W_RDPTR));
   }
-  if (g == 0) {
-    out.t[lane] = t;
-    out.nev[lane] = nev;
-    out.health[lane] = health;
-  }
+  out.t[lane] = t;
+  out.nev[lane] = nev;
+  out.health[lane] = health;
 }
 
 __global__ void threefry_kernel(const uint32_t* k0, const uint32_t* k1,
@@ -460,34 +432,27 @@ extern "C" {
 
 int rq_max_sources() { return RQ_MAX_S; }
 
+int rq_lanes_per_block() { return RQ_LANES; }
+
 const char* rq_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // params: 13 device pointers in the order of ops/event_step.PARAM_NAMES;
 // carry_in / carry_out: 8 device pointers in the order of CARRY_NAMES.
-// Returns cudaGetLastError() after the launch (0 on success).
+// blocks of RQ_LANES threads, smem_bytes of dynamic shared memory each:
+// RQ_LANES * (9 + number of Opt rows) * S words.  Returns
+// cudaGetLastError() after the launch (0 on success).
 int rq_event_kernel_launch(void* const* params, void* const* carry_in,
                            void* const* carry_out, void* times, void* srcs,
                            int B, int S, int F, int Kr, int Kp, int steps,
                            float end_time, unsigned int opt_mask, int flags,
-                           int group, unsigned long long own_lo,
-                           unsigned long long own_hi, int slots_per_thread,
-                           int threads_per_block, int blocks, int smem_bytes,
-                           void* stream) {
-  if (S < 1 || S > RQ_MAX_S || B < 1 || steps < 0 || group < 1 ||
-      group > 16 || (group & (group - 1)) != 0 || threads_per_block < 32 ||
-      threads_per_block > BLOCK || threads_per_block % 32 != 0 ||
-      blocks < 1 || static_cast<long long>(blocks) * threads_per_block <
-                        static_cast<long long>(B) * group ||
-      slots_per_thread < 1 || slots_per_thread > S || smem_bytes < 0)
+                           int blocks, int smem_bytes, void* stream) {
+  const long long need = 4LL * LANES * (W_RS + __builtin_popcount(opt_mask)) * S;
+  if (S < 1 || S > RQ_MAX_S || B < 1 || steps < 0 || blocks < 1 ||
+      static_cast<long long>(blocks) * LANES < B || smem_bytes != need ||
+      (S < 32 && (opt_mask >> S) != 0u))
     return static_cast<int>(cudaErrorInvalidValue);
-  for (int s = 0; s < S; ++s) {
-    const unsigned long long own =
-        s < 16 ? own_lo >> (4 * s) : own_hi >> (4 * s - 64);
-    if (static_cast<int>(own & 0xfu) >= group)
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
   Params p;
   p.kind = static_cast<const int32_t*>(params[0]);
   p.rate = static_cast<const float*>(params[1]);
@@ -503,13 +468,13 @@ int rq_event_kernel_launch(void* const* params, void* const* carry_in,
   p.pw_times = static_cast<const float*>(params[11]);
   p.pw_rates = static_cast<const float*>(params[12]);
   decltype(&event_kernel<2>) kernel;
-  if (slots_per_thread <= 2) {
+  if (S <= 2) {
     kernel = event_kernel<2>;
-  } else if (slots_per_thread <= 4) {
+  } else if (S <= 4) {
     kernel = event_kernel<4>;
-  } else if (slots_per_thread <= 8) {
+  } else if (S <= 8) {
     kernel = event_kernel<8>;
-  } else if (slots_per_thread <= 16) {
+  } else if (S <= 16) {
     kernel = event_kernel<16>;
   } else {
     kernel = event_kernel<32>;
@@ -519,12 +484,10 @@ int rq_event_kernel_launch(void* const* params, void* const* carry_in,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<blocks, threads_per_block, smem_bytes,
-           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, LANES, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       p, carry_from(carry_in), carry_from(carry_out),
       static_cast<float*>(times), static_cast<int32_t*>(srcs), B, S, F, Kr,
-      Kp, steps, end_time, opt_mask, flags, group, slots_per_thread,
-      static_cast<uint64_t>(own_lo), static_cast<uint64_t>(own_hi));
+      Kp, steps, end_time, opt_mask, flags);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,27 +15,51 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int d) {
   return (x << d) | (x >> (32 - d));
 }
 
-// One block: key (k0, k1), counter (x0, x1) -> (y0, y1).
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t x0, uint32_t x1,
-                                             uint32_t& y0, uint32_t& y1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+// N independent blocks, round by round, so that their dependency chains
+// interleave: keys (k0[n], k1[n]), counters (x0[n], x1[n]) in place.
+template <int N>
+__device__ __forceinline__ void threefry2x32_n(const uint32_t (&k0)[N],
+                                               const uint32_t (&k1)[N],
+                                               uint32_t (&x0)[N],
+                                               uint32_t (&x1)[N]) {
   constexpr int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
+  uint32_t ks[3][N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    ks[0][n] = k0[n];
+    ks[1][n] = k1[n];
+    ks[2][n] = k0[n] ^ k1[n] ^ 0x1BD11BDAu;
+    x0[n] += ks[0][n];
+    x1[n] += ks[1][n];
+  }
 #pragma unroll
   for (int g = 0; g < 5; ++g) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      x0 += x1;
-      x1 = rotl32(x1, kRot[g & 1][i]);
-      x1 ^= x0;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        x0[n] += x1[n];
+        x1[n] = rotl32(x1[n], kRot[g & 1][i]);
+        x1[n] ^= x0[n];
+      }
     }
-    x0 += ks[(g + 1) % 3];
-    x1 += ks[(g + 2) % 3] + static_cast<uint32_t>(g + 1);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      x0[n] += ks[(g + 1) % 3][n];
+      x1[n] += ks[(g + 2) % 3][n] + static_cast<uint32_t>(g + 1);
+    }
   }
-  y0 = x0;
-  y1 = x1;
+}
+
+// One block: key (k0, k1), counter (x0, x1) -> (y0, y1).
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t x0, uint32_t x1,
+                                             uint32_t& y0, uint32_t& y1) {
+  const uint32_t k0s[1] = {k0}, k1s[1] = {k1};
+  uint32_t x0s[1] = {x0}, x1s[1] = {x1};
+  threefry2x32_n<1>(k0s, k1s, x0s, x1s);
+  y0 = x0s[0];
+  y1 = x1s[0];
 }
 
 // uint32 bits -> float32 uniform in [0, 1): the top 24 bits times 2^-24.

@@ -29,8 +29,8 @@ import torch
 from .event_step import CARRY_NAMES, PARAM_NAMES, KernelSpec
 
 __all__ = ["MAX_S", "NVCC_FLAGS", "BUILD_DIR", "build", "LAUNCHES",
-           "reset_launch_counts", "check_kernel_shape", "Geometry",
-           "geometry", "launch_event_kernel", "launch_with_geometry",
+           "reset_launch_counts", "check_kernel_shape", "LANES_PER_BLOCK",
+           "Geometry", "geometry", "launch_event_kernel",
            "threefry_on_device"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -46,14 +46,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")
 
+#: Lanes per block (RQ_LANES in the kernel): one thread per lane, one
+#: warp per block, the finest grain the block scheduler spreads over the
+#: SMs.
+LANES_PER_BLOCK = 32
 #: Shared memory one block may take on Hopper; the largest shape the
-#: kernel takes (S = MAX_S, every source an Opt row, G = 1) needs 172,032.
+#: kernel takes (S = MAX_S, every source an Opt row) needs 167,936.
 MAX_SMEM_BYTES = 232_448
-#: Threads per lane (G), chosen by measurement at the headline (PERF.md).
-GROUP = 1
-#: Threads per block: one warp, the finest grain the block scheduler
-#: spreads over the SMs (the kernel takes up to 128).
-THREADS_PER_BLOCK = 32
 
 #: Launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else.
@@ -131,16 +130,19 @@ def _lib() -> ctypes.CDLL:
         vp, vp, vp, vp, vp,                     # params, carry in/out, log
         ci, ci, ci, ci, ci, ci,                 # B, S, F, Kr, Kp, steps
         ctypes.c_float, ctypes.c_uint, ci,      # end_time, opt_mask, flags
-        ci, ctypes.c_ulonglong, ctypes.c_ulonglong,   # group, owners
-        ci, ci, ci, ci,                         # the rest of the geometry
+        ci, ci,                                 # blocks, smem bytes
         vp]                                     # stream
     lib.rq_event_kernel_launch.restype = ci
     lib.rq_threefry_launch.argtypes = [vp] * 6 + [ci, vp]
     lib.rq_threefry_launch.restype = ci
-    if lib.rq_max_sources() != MAX_S:
+    lib.rq_lanes_per_block.argtypes = []
+    lib.rq_lanes_per_block.restype = ci
+    if (lib.rq_max_sources(), lib.rq_lanes_per_block()) != (
+            MAX_S, LANES_PER_BLOCK):
         raise RuntimeError(
-            f"kernel library bound RQ_MAX_S={lib.rq_max_sources()} "
-            f"disagrees with ops.kernels.MAX_S={MAX_S}")
+            f"kernel library bounds RQ_MAX_S={lib.rq_max_sources()}, "
+            f"RQ_LANES={lib.rq_lanes_per_block()} disagree with "
+            f"ops.kernels MAX_S={MAX_S}, LANES_PER_BLOCK={LANES_PER_BLOCK}")
     _LIBS["event_kernel"] = lib
     return lib
 
@@ -166,62 +168,24 @@ def check_kernel_shape(spec: KernelSpec) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """How one launch spreads over the card: ``group`` consecutive threads
-    of a warp per lane, source ``s`` owned by thread ``owners[s]`` of the
-    group (at most ``slots_per_thread`` sources each), ``lanes_per_block``
-    lanes in each of ``blocks`` blocks, and ``smem_bytes`` of dynamic
-    shared memory per block."""
+    """How one launch spreads over the card: one thread per lane,
+    ``lanes_per_block`` lanes in each of ``blocks`` blocks, and
+    ``smem_bytes`` of dynamic shared memory per block."""
 
-    group: int
-    owners: Tuple[int, ...]
-    slots_per_thread: int
     lanes_per_block: int
-    threads_per_block: int
     blocks: int
     smem_bytes: int
 
 
-def owners(S: int, opt_rows, group: int) -> Tuple[int, ...]:
-    """The thread of a lane's group that owns each source.  A step makes
-    one draw for the fired source and one for each Opt row that reacts,
-    and a thread makes its draws one after another, so with fewer Opt
-    rows than threads each Opt row gets a thread of its own (the last
-    ones) and the other sources share the rest in turn; otherwise source
-    ``s`` goes to thread ``s % group``."""
-    opt = sorted(opt_rows)
-    if len(opt) >= group:
-        return tuple(s % group for s in range(S))
-    rest = group - len(opt)
-    own, n = [], 0
-    for s in range(S):
-        if s in opt:
-            own.append(group - 1 - opt.index(s))
-        else:
-            own.append(n % rest)
-            n += 1
-    return tuple(own)
-
-
-def geometry(spec: KernelSpec, B: int, group: int = GROUP) -> Geometry:
-    """The launch geometry of ``spec`` over ``B`` lanes at ``group``
-    threads per lane (a power of two up to 16).  Each thread keeps, for
-    the sources it owns, their index, constants (k0, k1, kind, rate) and
-    state (t_next, ctr, exc, exc_t, rd_ptr), and for each Opt row among
-    them one react rate sum per source, all in shared memory."""
-    if group < 1 or group > 16 or group & (group - 1):
-        raise ValueError(f"group must be a power of two up to 16, got "
-                         f"{group}")
-    own = owners(spec.S, spec.opt_rows, group)
-    per_thread = max(own.count(g) for g in range(group))
-    opt_per_thread = max(sum(1 for r in spec.opt_rows if own[r] == g)
-                         for g in range(group))
-    words = 10 * per_thread + opt_per_thread * spec.S
-    lanes = THREADS_PER_BLOCK // group
-    return Geometry(group=group, owners=own, slots_per_thread=per_thread,
-                    lanes_per_block=lanes,
-                    threads_per_block=THREADS_PER_BLOCK,
-                    blocks=-(-B // lanes),
-                    smem_bytes=THREADS_PER_BLOCK * words * 4)
+def geometry(spec: KernelSpec, B: int) -> Geometry:
+    """The launch geometry of ``spec`` over ``B`` lanes.  Each lane keeps
+    its per-source constants (k0, k1, kind, rate) and state (t_next, ctr,
+    exc, exc_t, rd_ptr), and one react rate sum per (Opt row, source), in
+    shared memory: ``(9 + n_opt) * S`` words."""
+    words = (9 + len(spec.opt_rows)) * spec.S
+    return Geometry(lanes_per_block=LANES_PER_BLOCK,
+                    blocks=-(-B // LANES_PER_BLOCK),
+                    smem_bytes=LANES_PER_BLOCK * words * 4)
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -248,13 +212,6 @@ def launch_event_kernel(spec: KernelSpec, params: Dict[str, torch.Tensor],
     of ``spec.capacity`` steps from ``carry``.  Takes and returns what
     ``event_step.run_launch`` does: ``(carry_out, times [k*cap, B] f32,
     srcs [k*cap, B] i32)``; the inputs are not modified."""
-    return launch_with_geometry(
-        spec, params, carry, geometry(spec, params["rate"].shape[-1]))
-
-
-def launch_with_geometry(spec: KernelSpec, params: Dict[str, torch.Tensor],
-                         carry: Dict[str, torch.Tensor], geom: Geometry):
-    """:func:`launch_event_kernel` with the launch geometry given."""
     check_kernel_shape(spec)
     dev = params["rate"].device
     if dev.type != "cuda":
@@ -296,17 +253,15 @@ def launch_with_geometry(spec: KernelSpec, params: Dict[str, torch.Tensor],
     opt_mask = 0
     for r in spec.opt_rows:
         opt_mask |= 1 << r
-    # Source s's owning thread in nibble s of a 128-bit word.
-    own = sum(g << (4 * s) for s, g in enumerate(geom.owners))
+    geom = geometry(spec, B)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.rq_event_kernel_launch(
         ctypes.cast(p_arr, ctypes.c_void_p),
         ctypes.cast(ci_arr, ctypes.c_void_p),
         ctypes.cast(co_arr, ctypes.c_void_p),
         times.data_ptr(), srcs.data_ptr(), B, S, F, Kr, Kp, steps,
-        float(spec.end_time), opt_mask, _flags(spec), geom.group,
-        own & (2**64 - 1), own >> 64, geom.slots_per_thread,
-        geom.threads_per_block, geom.blocks, geom.smem_bytes, stream)
+        float(spec.end_time), opt_mask, _flags(spec), geom.blocks,
+        geom.smem_bytes, stream)
     _check(rc, "event kernel")
     LAUNCHES["event_kernel"] += 1
     return out, times, srcs

@@ -140,53 +140,29 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def test_geometry_at_the_headline_fills_the_card():
     spec = dataclasses.replace(_spec(11), F=10)
     geom = kernels.geometry(spec, 10_000)
-    assert geom.group == kernels.GROUP
-    assert geom.threads_per_block % 32 == 0
-    assert geom.threads_per_block == geom.lanes_per_block * geom.group
+    assert geom.lanes_per_block == kernels.LANES_PER_BLOCK
+    assert geom.lanes_per_block % 32 == 0  # whole warps
     assert (geom.blocks - 1) * geom.lanes_per_block < 10_000
     assert geom.blocks * geom.lanes_per_block >= 10_000
     assert geom.blocks >= 132  # every SM of an H100 gets a block
+    assert geom.smem_bytes == geom.lanes_per_block * 4 * (9 + 1) * 11
 
 
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
-def test_geometry_fits_the_largest_shape_the_kernel_takes(group):
+@pytest.mark.parametrize("B", [1, 37, 1001])
+def test_geometry_fits_the_largest_shape_the_kernel_takes(B):
     # S = MAX_S with every source an Opt row needs the most shared memory.
     spec = dataclasses.replace(_spec(kernels.MAX_S),
                                opt_rows=tuple(range(kernels.MAX_S)))
-    geom = kernels.geometry(spec, 1001, group=group)
+    geom = kernels.geometry(spec, B)
     assert geom.smem_bytes <= kernels.MAX_SMEM_BYTES
-    per_thread = -(-kernels.MAX_S // group)
-    assert geom.slots_per_thread == per_thread
-    assert geom.smem_bytes == geom.threads_per_block * 4 * (
-        10 * per_thread + per_thread * kernels.MAX_S)
+    assert geom.smem_bytes == geom.lanes_per_block * 4 * (
+        9 + kernels.MAX_S) * kernels.MAX_S
+    assert geom.blocks == -(-B // geom.lanes_per_block)
 
 
-def test_geometry_sizes_the_react_table_by_opt_rows_per_thread():
-    # Four Opt rows in a group of 4 share it by s % 4: rows 3 and 31 both
-    # belong to thread 3.
-    spec = dataclasses.replace(_spec(32), opt_rows=(3, 10, 17, 31))
-    geom = kernels.geometry(spec, 37, group=4)
-    assert geom.owners == tuple(s % 4 for s in range(32))
-    assert geom.smem_bytes == geom.threads_per_block * 4 * (10 * 8 + 2 * 32)
-    assert geom.blocks == -(-37 // geom.lanes_per_block)
-
-
-@pytest.mark.parametrize("group,want", [
-    (1, (0,) * 11),
-    (2, (1,) + (0,) * 10),
-    (4, (3, 0, 1, 2, 0, 1, 2, 0, 1, 2, 0)),
-])
-def test_owners_give_the_headline_opt_row_a_thread_of_its_own(group, want):
-    assert kernels.owners(11, (0,), group) == want
-
-
-def test_owners_spread_two_opt_rows_from_the_last_thread():
-    own = kernels.owners(6, (0, 3), 4)
-    assert own == (3, 0, 1, 2, 0, 1)
-    assert kernels.owners(6, (0, 3), 2) == (0, 1, 0, 1, 0, 1)
-
-
-@pytest.mark.parametrize("group", [0, 3, 64])
-def test_geometry_refuses_a_group_that_is_no_power_of_two(group):
-    with pytest.raises(ValueError, match="power of two"):
-        kernels.geometry(_spec(4), 8, group=group)
+@pytest.mark.parametrize("opt_rows", [(), (0,), (3, 10, 17, 31)])
+def test_geometry_sizes_the_react_table_by_opt_rows(opt_rows):
+    spec = dataclasses.replace(_spec(32), opt_rows=opt_rows)
+    geom = kernels.geometry(spec, 37)
+    assert geom.smem_bytes == geom.lanes_per_block * 4 * (
+        9 + len(opt_rows)) * 32
