@@ -23,8 +23,11 @@ Phases, each reported on its own line:
    kernel's launch count taken around that run and a best-of-3 timing;
    then the kernel and its plain version replay the best run's inputs,
    each launch timed, and are held against each other on every lane.
-   The headline's seeds give 12,300,664 events, a mean time-in-top-1 of
-   80.3196 and 230.30 posts per lane; any other count fails.
+   The kernel is timed twice: on the device alone (the row's ``ms``),
+   and with the wrapper's host work inside the events (how PR 1's
+   ``ms_before`` was taken).  The headline's seeds give 12,300,664
+   events, a mean time-in-top-1 of 80.3196 and 230.30 posts per lane;
+   any other count fails.
 
 Every kernel-against-plain comparison holds every lane bit-identical:
 ``srcs``, ``n_events``, health, counters and ``times``.

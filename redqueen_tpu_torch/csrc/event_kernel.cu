@@ -27,18 +27,24 @@
 //
 // A step is a chain of dependent operations, so the kernel shortens the
 // chain rather than adding threads (a lane spread over G threads was
-// measured slower at every G > 1: see PERF.md).  The argmin over the
-// clocks, a pairwise tree, runs at the end of a step that fired; a step
-// that absorbs changes no clock and keeps it.  The fired source's draw and
-// the first Opt row's react draw are independent (the react reads ctr[r]
-// with r != s_star) and run as two interleaved threefry chains; further
-// Opt rows draw two at a time.  No draw is made before its use is known.
+// measured slower at every G > 1: see PERF.md).  Three independent pieces
+// of work run side by side in one straight block once s_star is known:
+// the fired source's draw on (key; ctr, 0), the first Opt row's react
+// draw on (key; ctr, 1) (it reads ctr[r] with r != s_star, which the fire
+// does not touch), and a pairwise-tree argmin over the clocks the step
+// leaves as they are (every source but s_star and the Opt rows).  The
+// fired source's new clock and the Opt rows' clocks are folded into that
+// minimum afterwards, so the next step's argmin adds only a few compares
+// to the chain; a step that absorbs moves no clock and keeps its argmin.
+// Further Opt rows draw two at a time.  No draw is made before s_star is
+// known; an Opt row that does not react draws in step with the others and
+// drops the result.
 //
 // What bounds it.  At the headline shape (B = 10,000 lanes, S = 11,
-// F = 10) 10,000 threads are about 2.4 warps per SM: the step's chain
-// (argmin tree, shared-memory loads, threefry, log1pf, an IEEE division)
-// sets the pace, not the issue rate and not the roughly 8 bytes per
-// lane-step of log traffic.
+// F = 10) 10,000 threads are about 2.4 warps per SM, fewer than one per
+// scheduler: the step's chain (shared-memory loads, threefry, log1pf, an
+// IEEE division, the fold) sets the pace, not the issue rate and not the
+// roughly 8 bytes per lane-step of log traffic.
 //
 // Numerics.  Built without --use_fast_math and with --fmad=false (see
 // ops/kernels.py): IEEE division and sqrtf, expf and log1pf from the CUDA
@@ -238,20 +244,20 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
     }
   }
 
-  // ---- argmin commit (lowest-index tie-break): all clocks read at once,
-  // reduced by a pairwise tree whose left side holds the lower indices,
-  // so a tie keeps the lower one; padding (i >= S) is +inf and sorts
-  // after every source.  A NaN clock gives NaN and s_star = S. ----
-  float tmin;
-  int s_star;
-  auto argmin = [&]() {
+  // ---- argmin commit (lowest-index tie-break) over the sources in
+  // mask: their clocks read at once and reduced by a pairwise tree whose
+  // left side holds the lower indices, so a tie keeps the lower one; a
+  // source outside the mask, and padding (i >= S), is +inf at its own
+  // index, which never displaces a real clock of the same source.  A NaN
+  // clock sets nan. ----
+  auto argmin_of = [&](uint32_t mask, float& vmin, int& imin, bool& nan) {
     float v[NS];
     int ix[NS];
-    bool nan = false;
+    nan = false;
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
       const float x = wf(i < S ? i : 0, W_TNEXT);
-      v[i] = i < S ? x : f_inf();
+      v[i] = (i < S && ((mask >> i) & 1u)) ? x : f_inf();
       ix[i] = i;
       nan |= is_nan(v[i]);
     }
@@ -265,14 +271,23 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
         }
       }
     }
-    tmin = nan ? f_nan() : v[0];
-    s_star = nan ? S : ix[0];
+    vmin = v[0];
+    imin = ix[0];
   };
 
   float t = in.t[lane];
   int32_t nev = in.nev[lane];
   uint32_t health = in.health[lane];
-  argmin();
+  float tmin;
+  int s_star;
+  {
+    bool nan;
+    argmin_of(0xffffffffu, tmin, s_star, nan);
+    if (nan) {
+      tmin = f_nan();
+      s_star = S;
+    }
+  }
 
   for (int step = 0; step < steps; ++step) {
     // ---- lane gating ----
@@ -297,13 +312,31 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
     const uint32_t ctr_s = w(s, W_CTR);
     const int kd = static_cast<int>(w(s, W_KIND));
     const float rate = wf(s, W_RATE);
-    // Opt row r (ordinal j) reacts to s with rs[j][s] when rs > 0.
-    auto react = [&](int r, int j, float e) {
+    // The clocks this step leaves as they are, every source but s and the
+    // Opt rows, are reduced beside the draws; the others are folded in as
+    // their new values come.
+    float best;
+    int best_i;
+    bool nan_seen;
+    auto fold = [&](float v, int i) {
+      nan_seen |= is_nan(v);
+      if (v < best || (v == best && i < best_i)) {
+        best = v;
+        best_i = i;
+      }
+    };
+    const uint32_t keep = ~(opt_mask | (1u << s));
+    // Opt row r (ordinal j, clock tr) reacts to s with rs[j][s] when
+    // rs > 0; a row that does not react draws in step and drops it.
+    auto react = [&](int r, int j, float e, float tr) {
       const float rs = wf(s, W_RS + j);
-      if (r != s && rs > 0.f) {
-        wf(r, W_TNEXT) = jmin(wf(r, W_TNEXT), tmin + e / jmax(rs, TINY));
+      if (r == s) return;
+      if (rs > 0.f) {
+        tr = jmin(tr, tmin + e / jmax(rs, TINY));
+        wf(r, W_TNEXT) = tr;
         w(r, W_CTR) += 1u;
       }
+      fold(tr, r);
     };
     uint32_t m = opt_mask;
     float e_fire;
@@ -313,13 +346,16 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
       const uint32_t k0[2] = {w(s, W_K0), w(r, W_K0)};
       const uint32_t k1[2] = {w(s, W_K1), w(r, W_K1)};
       const uint32_t c[2] = {ctr_s, w(r, W_CTR)};
+      const float tr = wf(r, W_TNEXT);
+      argmin_of(keep, best, best_i, nan_seen);
       float e[2];
       exp_draws<2>(k0, k1, c, 0u, e);
       e_fire = e[0];
-      react(r, 0, e[1]);
+      react(r, 0, e[1], tr);
     } else {
       const uint32_t k0[1] = {w(s, W_K0)}, k1[1] = {w(s, W_K1)};
       const uint32_t c[1] = {ctr_s};
+      argmin_of(keep, best, best_i, nan_seen);
       float e[1];
       exp_draws<1>(k0, k1, c, 0u, e);
       e_fire = e[0];
@@ -333,16 +369,18 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
         const uint32_t k0[2] = {w(ra, W_K0), w(rb, W_K0)};
         const uint32_t k1[2] = {w(ra, W_K1), w(rb, W_K1)};
         const uint32_t c[2] = {w(ra, W_CTR), w(rb, W_CTR)};
+        const float ta = wf(ra, W_TNEXT), tb = wf(rb, W_TNEXT);
         float e[2];
         exp_draws<2>(k0, k1, c, 1u, e);
-        react(ra, j, e[0]);
-        react(rb, j + 1, e[1]);
+        react(ra, j, e[0], ta);
+        react(rb, j + 1, e[1], tb);
       } else {
         const uint32_t k0[1] = {w(ra, W_K0)}, k1[1] = {w(ra, W_K1)};
         const uint32_t c[1] = {w(ra, W_CTR)};
+        const float ta = wf(ra, W_TNEXT);
         float e[1];
         exp_draws<1>(k0, k1, c, 1u, e);
-        react(ra, j, e[0]);
+        react(ra, j, e[0], ta);
       }
     }
 
@@ -389,7 +427,9 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
     t = tmin;
     nev += 1;
     health |= bits;
-    argmin();
+    fold(t_new, s);
+    tmin = nan_seen ? f_nan() : best;
+    s_star = nan_seen ? S : best_i;
   }
 
   for (int s = 0; s < S; ++s) {
