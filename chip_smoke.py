@@ -511,8 +511,8 @@ def phase_headline(dev):
           f"{res['mean_top1']:.4f}; posts per lane {res['posts_per_lane']:.2f}; "
           f"mean events per wall {wall.mean():.3f} (100 within 4 sigma "
           f"{4 * se:.3f})")
-    print(f"  launch geometry: G = 2 threads per lane in two warps (fire, "
-          f"react), {geom.lanes_per_block} lanes per block, {geom.blocks} blocks, "
+    print(f"  launch geometry: G = 1 thread per lane, "
+          f"{geom.lanes_per_block} lanes per block, {geom.blocks} blocks, "
           f"{geom.smem_bytes} bytes of shared memory per block")
     print(f"  kernel ms per launch on the device {['%.4f' % x for x in k_ms]} "
           f"(mean {res['kernel_ms_mean']:.4f}); with the wrapper's host work "

@@ -8,39 +8,43 @@
 // piecewise-constant rates.  The plain PyTorch version, with the same
 // arithmetic in the same order, is redqueen_tpu_torch/ops/event_step.py.
 //
-// Design.  A block serves LANES lanes (components) with two warps: the
-// fire warp draws each lane's fired source on (key; ctr, 0) and resamples
-// it; the react warp draws the Opt rows' reacts on (key; ctr, 1) and
-// reduces, by a pairwise tree, the clocks the step leaves as they are
-// (every source but s_star and the Opt rows).  Both roles depend only on
-// s_star (a react reads ctr[r] with r != s_star, which the fire does not
-// touch), so they run side by side; the warps then meet at one barrier,
-// exchange the fired source's new clock and the partial minimum through a
-// double-buffered slot in shared memory, and both fold them into the next
-// step's argmin alike.  Splitting the roles by warp, not by thread, keeps
-// each warp free of divergence, and halves what each one issues per step.
-// A step that absorbs moves no clock and keeps its argmin.  No draw is
-// made before s_star is known; an Opt row that does not react draws in
-// step with the others and drops the result.
+// Design.  One thread per lane (component), LANES lanes to a block: one
+// warp, the finest grain the block scheduler spreads over the SMs.  At the
+// start of a launch each thread copies its lane's per-source constants
+// (k0, k1, kind, rate) and state (t_next, ctr, exc, exc_t, rd_ptr) into
+// shared memory and computes its react table there once: for each Opt row
+// r_j (in opt_mask order) and source s, rs[j][s] = sum_f adj[r_j,f] *
+// adj[s,f] * sqrtf(ssink[f] / q_r), in the plain version's f order.  The
+// event loop reads rs[j][s_star] where the plain version sums over F.
+// Shared memory holds one column of words per lane, word w of lane i at
+// smem[w * LANES + i], so a warp's 32 threads always hit 32 banks whatever
+// source each indexes; source s takes words s*stride .. s*stride+stride-1
+// of the column, so every field sits at a compile-time offset from the
+// source's base.  Neighbouring threads take neighbouring lanes, so every
+// [.., B] load and every row of the times/srcs log is coalesced; the lane
+// count needs no padding (the kernel masks lane < B).  The carry is
+// written back once at the end.
 //
-// At the start of a launch the fire warp copies its lanes' per-source
-// constants (k0, k1, kind, rate) and state (t_next, ctr, exc, exc_t,
-// rd_ptr) into shared memory while the react warp computes their react
-// tables there: for each Opt row r_j (in opt_mask order) and source s,
-// rs[j][s] = sum_f adj[r_j,f] * adj[s,f] * sqrtf(ssink[f] / q_r), in the
-// plain version's f order.  Shared memory holds one column of words per
-// lane, word w of lane i at smem[w * LANES + i], so a warp's 32 threads
-// always hit 32 banks whatever source each indexes; source s takes words
-// s*stride .. s*stride+stride-1 of the column, so every field sits at a
-// compile-time offset from the source's base.  Neighbouring threads take
-// neighbouring lanes, so every [.., B] load and every row of the
-// times/srcs log is coalesced; the lane count needs no padding (the kernel
-// masks lane < B).  The carry is written back once at the end.
+// A step is a chain of dependent operations, so the kernel shortens the
+// chain rather than adding threads (a lane spread over G threads was
+// measured slower at every G > 1: see PERF.md).  Three independent pieces
+// of work run side by side in one straight block once s_star is known:
+// the fired source's draw on (key; ctr, 0), the first Opt row's react
+// draw on (key; ctr, 1) (it reads ctr[r] with r != s_star, which the fire
+// does not touch), and a pairwise-tree argmin over the clocks the step
+// leaves as they are (every source but s_star and the Opt rows).  The
+// fired source's new clock and the Opt rows' clocks are folded into that
+// minimum afterwards, so the next step's argmin adds only a few compares
+// to the chain; a step that absorbs moves no clock and keeps its argmin.
+// Further Opt rows draw two at a time.  No draw is made before s_star is
+// known; an Opt row that does not react draws in step with the others and
+// drops the result.
 //
 // What bounds it.  At the headline shape (B = 10,000 lanes, S = 11,
-// F = 10) the fire warp's chain (shared-memory loads, threefry, log1pf,
-// an IEEE division, the barrier and the fold) sets the pace, not the
-// issue rate and not the roughly 8 bytes per lane-step of log traffic.
+// F = 10) 10,000 threads are about 2.4 warps per SM, fewer than one per
+// scheduler: the step's chain (shared-memory loads, threefry, log1pf, an
+// IEEE division, the fold) sets the pace, not the issue rate and not the
+// roughly 8 bytes per lane-step of log traffic.
 //
 // Numerics.  Built without --use_fast_math and with --fmad=false (see
 // ops/kernels.py): IEEE division and sqrtf, expf and log1pf from the CUDA
@@ -185,50 +189,44 @@ struct Carry {
 };
 
 // NS: a power of two at least S, the width of the argmin tree.
-// Block: 2 * LANES threads for LANES lanes; warp 0 fires, warp 1 reacts.
 template <int NS>
-__global__ void __launch_bounds__(2 * LANES)
+__global__ void __launch_bounds__(LANES)
 event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
              int32_t* __restrict__ srcs, int B_, int S, int F, int Kr, int Kp,
              int steps, float end_time, uint32_t opt_mask, int flags) {
   extern __shared__ uint32_t smem[];
-  const int li = threadIdx.x & (LANES - 1);
-  const bool firer = threadIdx.x < LANES;
-  const int lane = blockIdx.x * LANES + li;
-  const bool live = lane < B_;
+  const int lane = blockIdx.x * LANES + threadIdx.x;
+  if (lane >= B_) return;
   const size_t B = static_cast<size_t>(B_);
   const bool has_hawkes = flags & HAS_HAWKES;
   const bool has_rd = flags & HAS_RD;
   const bool has_pw = flags & HAS_PW;
+  // Words per source in a column, times LANES.
   const int stride = (W_RS + __popc(opt_mask)) * LANES;
-  uint32_t* const col = smem + li;
+  uint32_t* const col = smem + threadIdx.x;
   auto w = [&](int s, int word) -> uint32_t& {
     return col[s * stride + word * LANES];
   };
   auto wf = [&](int s, int word) -> float& {
     return reinterpret_cast<float&>(w(s, word));
   };
-  // Exchange words after the columns, two buffers by step parity:
-  // 0 t_new, 1 bits (fire warp); 2 best, 3 best_i, 4 nan (react warp).
-  uint32_t* const xch = smem + S * stride + li;
-  auto x = [&](int buf, int word) -> uint32_t& {
-    return xch[(buf * 5 + word) * LANES];
-  };
 
-  if (live && firer) {
-    for (int s = 0; s < S; ++s) {
-      const size_t xi = s * B + lane;
-      w(s, W_K0) = p.k0[xi];
-      w(s, W_K1) = p.k1[xi];
-      w(s, W_KIND) = static_cast<uint32_t>(p.kind[xi]);
-      wf(s, W_RATE) = p.rate[xi];
-      wf(s, W_TNEXT) = in.t_next[xi];
-      w(s, W_CTR) = in.ctr[xi];
-      wf(s, W_EXC) = in.exc[xi];
-      wf(s, W_EXCT) = in.exc_t[xi];
-      w(s, W_RDPTR) = static_cast<uint32_t>(in.rd_ptr[xi]);
-    }
-  } else if (live) {
+  // ---- the lane's constants, state and react table, once per launch ----
+  for (int s = 0; s < S; ++s) {
+    const size_t x = s * B + lane;
+    w(s, W_K0) = p.k0[x];
+    w(s, W_K1) = p.k1[x];
+    w(s, W_KIND) = static_cast<uint32_t>(p.kind[x]);
+    wf(s, W_RATE) = p.rate[x];
+    wf(s, W_TNEXT) = in.t_next[x];
+    w(s, W_CTR) = in.ctr[x];
+    wf(s, W_EXC) = in.exc[x];
+    wf(s, W_EXCT) = in.exc_t[x];
+    w(s, W_RDPTR) = static_cast<uint32_t>(in.rd_ptr[x]);
+  }
+  {
+    // f outer, so each rs is summed in f order from 0, as the plain
+    // version's per-event sum.
     int j = 0;
     for (uint32_t m = opt_mask; m != 0u; m &= m - 1u, ++j) {
       const int r = __ffs(m) - 1;
@@ -245,16 +243,21 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
       }
     }
   }
-  __syncthreads();
 
+  // ---- argmin commit (lowest-index tie-break) over the sources in
+  // mask: their clocks read at once and reduced by a pairwise tree whose
+  // left side holds the lower indices, so a tie keeps the lower one; a
+  // source outside the mask, and padding (i >= S), is +inf at its own
+  // index, which never displaces a real clock of the same source.  A NaN
+  // clock sets nan. ----
   auto argmin_of = [&](uint32_t mask, float& vmin, int& imin, bool& nan) {
     float v[NS];
     int ix[NS];
     nan = false;
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
-      const float xv = wf(i < S ? i : 0, W_TNEXT);
-      v[i] = (i < S && ((mask >> i) & 1u)) ? xv : f_inf();
+      const float x = wf(i < S ? i : 0, W_TNEXT);
+      v[i] = (i < S && ((mask >> i) & 1u)) ? x : f_inf();
       ix[i] = i;
       nan |= is_nan(v[i]);
     }
@@ -272,14 +275,12 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
     imin = ix[0];
   };
 
-  float t = 0.f, tmin = 0.f;
-  int32_t nev = 0;
-  uint32_t health = 0u;
-  int s_star = 0;
-  if (live) {
-    t = in.t[lane];
-    nev = in.nev[lane];
-    health = in.health[lane];
+  float t = in.t[lane];
+  int32_t nev = in.nev[lane];
+  uint32_t health = in.health[lane];
+  float tmin;
+  int s_star;
+  {
     bool nan;
     argmin_of(0xffffffffu, tmin, s_star, nan);
     if (nan) {
@@ -287,155 +288,161 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
       s_star = S;
     }
   }
-  // Both warps have read every clock before the fire warp moves one.
-  __syncthreads();
 
   for (int step = 0; step < steps; ++step) {
-    const int buf = step & 1;
+    // ---- lane gating ----
     const bool nan_t = is_nan(tmin);
     const bool healthy = health == 0u;
     const bool regressed = tmin < t;
-    const bool valid = live && (tmin <= end_time) && (s_star < S) &&
-                       healthy && !nan_t && !regressed;
+    const bool valid = (tmin <= end_time) && (s_star < S) && healthy &&
+                       !nan_t && !regressed;
     const size_t row = static_cast<size_t>(step) * B + lane;
-    const int s = s_star;
-    if (live && !valid) {
-      if (firer) {
-        times[row] = f_inf();
-        srcs[row] = -1;
-      }
+    if (!valid) {
+      // Absorbing: no clock moves, so the argmin stands.
+      times[row] = f_inf();
+      srcs[row] = -1;
       health |= (healthy && (nan_t || regressed)) ? BIT_NONFINITE_TIME : 0u;
-    } else if (valid && firer) {
-      // ---- the fired source's draw, resample and write-back ----
-      const uint32_t ctr_s = w(s, W_CTR);
-      const int kd = static_cast<int>(w(s, W_KIND));
-      const float rate = wf(s, W_RATE);
+      continue;
+    }
+
+    // ---- the fired source's draw on (key; ctr, 0) beside the first Opt
+    // row's react draw on (key; ctr, 1); then the other Opt rows' reacts,
+    // two at a time.  A react touches only its own row r != s_star. ----
+    const int s = s_star;
+    const uint32_t ctr_s = w(s, W_CTR);
+    const int kd = static_cast<int>(w(s, W_KIND));
+    const float rate = wf(s, W_RATE);
+    // The clocks this step leaves as they are, every source but s and the
+    // Opt rows, are reduced beside the draws; the others are folded in as
+    // their new values come.
+    float best;
+    int best_i;
+    bool nan_seen;
+    auto fold = [&](float v, int i) {
+      nan_seen |= is_nan(v);
+      if (v < best || (v == best && i < best_i)) {
+        best = v;
+        best_i = i;
+      }
+    };
+    const uint32_t keep = ~(opt_mask | (1u << s));
+    // Opt row r (ordinal j, clock tr) reacts to s with rs[j][s] when
+    // rs > 0; a row that does not react draws in step and drops it.
+    auto react = [&](int r, int j, float e, float tr) {
+      const float rs = wf(s, W_RS + j);
+      if (r == s) return;
+      if (rs > 0.f) {
+        tr = jmin(tr, tmin + e / jmax(rs, TINY));
+        wf(r, W_TNEXT) = tr;
+        w(r, W_CTR) += 1u;
+      }
+      fold(tr, r);
+    };
+    uint32_t m = opt_mask;
+    float e_fire;
+    if (m != 0u) {
+      const int r = __ffs(m) - 1;
+      m &= m - 1u;
+      const uint32_t k0[2] = {w(s, W_K0), w(r, W_K0)};
+      const uint32_t k1[2] = {w(s, W_K1), w(r, W_K1)};
+      const uint32_t c[2] = {ctr_s, w(r, W_CTR)};
+      const float tr = wf(r, W_TNEXT);
+      argmin_of(keep, best, best_i, nan_seen);
+      float e[2];
+      exp_draws<2>(k0, k1, c, 0u, e);
+      e_fire = e[0];
+      react(r, 0, e[1], tr);
+    } else {
       const uint32_t k0[1] = {w(s, W_K0)}, k1[1] = {w(s, W_K1)};
       const uint32_t c[1] = {ctr_s};
+      argmin_of(keep, best, best_i, nan_seen);
       float e[1];
       exp_draws<1>(k0, k1, c, 0u, e);
-      const float e_fire = e[0];
-      const size_t sb = s * B + lane;
-      float t_new = (kd == KIND_POISSON && rate > 0.f)
-                        ? tmin + e_fire / jmax(rate, TINY)
-                        : f_inf();
-      float exc_new = 0.f;
-      if (has_hawkes && kd == KIND_HAWKES) {
-        const float beta = p.beta[sb];
-        exc_new = wf(s, W_EXC) * safe_exp(-beta * (tmin - wf(s, W_EXCT))) +
-                  p.alpha[sb];
-        t_new = tmin + hawkes_invert(e_fire, p.l0[sb], exc_new, beta);
-      } else if (has_rd && kd == KIND_REALDATA) {
-        const int ptr1 = static_cast<int>(w(s, W_RDPTR)) + 1;
-        t_new = (ptr1 < Kr)
-                    ? p.rd_times[(s * static_cast<size_t>(Kr) + ptr1) * B + lane]
-                    : f_inf();
-      } else if (has_pw && kd == KIND_PIECEWISE) {
-        const size_t base = s * static_cast<size_t>(Kp) * B + lane;
-        t_new = piecewise_invert(e_fire, tmin, p.pw_times + base,
-                                 p.pw_rates + base, Kp, B);
-      }
-      uint32_t bits = 0u;
-      if (is_nan(t_new)) {
-        bits |= BIT_NONFINITE_TIME;
-        t_new = f_inf();
-      }
-      wf(s, W_TNEXT) = t_new;
-      w(s, W_CTR) = ctr_s + 1u;
-      if (has_hawkes && kd == KIND_HAWKES) {
-        if (!((exc_new - exc_new) == 0.f)) bits |= BIT_NONFINITE_STATE;
-        wf(s, W_EXC) = exc_new;
-        wf(s, W_EXCT) = tmin;
-      }
-      if (has_rd && kd == KIND_REALDATA) w(s, W_RDPTR) += 1u;
-      times[row] = tmin;
-      srcs[row] = s;
-      reinterpret_cast<float&>(x(buf, 0)) = t_new;
-      x(buf, 1) = bits;
-    } else if (valid) {
-      // ---- the untouched clocks' argmin and the Opt rows' reacts ----
-      float best;
-      int best_i;
-      bool nan_seen;
-      argmin_of(~(opt_mask | (1u << s)), best, best_i, nan_seen);
-      auto fold = [&](float v, int i) {
-        nan_seen |= is_nan(v);
-        if (v < best || (v == best && i < best_i)) {
-          best = v;
-          best_i = i;
-        }
-      };
-      auto react = [&](int r, int j, float e, float tr) {
-        const float rs = wf(s, W_RS + j);
-        if (r == s) return;
-        if (rs > 0.f) {
-          tr = jmin(tr, tmin + e / jmax(rs, TINY));
-          wf(r, W_TNEXT) = tr;
-          w(r, W_CTR) += 1u;
-        }
-        fold(tr, r);
-      };
-      uint32_t m = opt_mask;
-      for (int j = 0; m != 0u; j += 2) {
-        const int ra = __ffs(m) - 1;
+      e_fire = e[0];
+    }
+    for (int j = 1; m != 0u; j += 2) {
+      const int ra = __ffs(m) - 1;
+      m &= m - 1u;
+      if (m != 0u) {
+        const int rb = __ffs(m) - 1;
         m &= m - 1u;
-        if (m != 0u) {
-          const int rb = __ffs(m) - 1;
-          m &= m - 1u;
-          const uint32_t k0[2] = {w(ra, W_K0), w(rb, W_K0)};
-          const uint32_t k1[2] = {w(ra, W_K1), w(rb, W_K1)};
-          const uint32_t c[2] = {w(ra, W_CTR), w(rb, W_CTR)};
-          const float ta = wf(ra, W_TNEXT), tb = wf(rb, W_TNEXT);
-          float e[2];
-          exp_draws<2>(k0, k1, c, 1u, e);
-          react(ra, j, e[0], ta);
-          react(rb, j + 1, e[1], tb);
-        } else {
-          const uint32_t k0[1] = {w(ra, W_K0)}, k1[1] = {w(ra, W_K1)};
-          const uint32_t c[1] = {w(ra, W_CTR)};
-          const float ta = wf(ra, W_TNEXT);
-          float e[1];
-          exp_draws<1>(k0, k1, c, 1u, e);
-          react(ra, j, e[0], ta);
-        }
+        const uint32_t k0[2] = {w(ra, W_K0), w(rb, W_K0)};
+        const uint32_t k1[2] = {w(ra, W_K1), w(rb, W_K1)};
+        const uint32_t c[2] = {w(ra, W_CTR), w(rb, W_CTR)};
+        const float ta = wf(ra, W_TNEXT), tb = wf(rb, W_TNEXT);
+        float e[2];
+        exp_draws<2>(k0, k1, c, 1u, e);
+        react(ra, j, e[0], ta);
+        react(rb, j + 1, e[1], tb);
+      } else {
+        const uint32_t k0[1] = {w(ra, W_K0)}, k1[1] = {w(ra, W_K1)};
+        const uint32_t c[1] = {w(ra, W_CTR)};
+        const float ta = wf(ra, W_TNEXT);
+        float e[1];
+        exp_draws<1>(k0, k1, c, 1u, e);
+        react(ra, j, e[0], ta);
       }
-      reinterpret_cast<float&>(x(buf, 2)) = best;
-      x(buf, 3) = static_cast<uint32_t>(best_i);
-      x(buf, 4) = nan_seen ? 1u : 0u;
     }
-    __syncthreads();
-    if (valid) {
-      // ---- both warps fold the fired source's new clock in alike ----
-      const float t_new = reinterpret_cast<float&>(x(buf, 0));
-      const uint32_t bits = x(buf, 1);
-      float best = reinterpret_cast<float&>(x(buf, 2));
-      int best_i = static_cast<int>(x(buf, 3));
-      bool nan_seen = x(buf, 4) != 0u || is_nan(t_new);
-      if (t_new < best || (t_new == best && s < best_i)) {
-        best = t_new;
-        best_i = s;
-      }
-      t = tmin;
-      nev += 1;
-      health |= bits;
-      tmin = nan_seen ? f_nan() : best;
-      s_star = nan_seen ? S : best_i;
+
+    // ---- per-kind resample (Opt and uncompiled kinds stay +inf) ----
+    const size_t sb = s * B + lane;
+    float t_new = (kd == KIND_POISSON && rate > 0.f)
+                      ? tmin + e_fire / jmax(rate, TINY)
+                      : f_inf();
+    float exc_new = 0.f;
+    if (has_hawkes && kd == KIND_HAWKES) {
+      const float beta = p.beta[sb];
+      exc_new = wf(s, W_EXC) * safe_exp(-beta * (tmin - wf(s, W_EXCT))) +
+                p.alpha[sb];
+      t_new = tmin + hawkes_invert(e_fire, p.l0[sb], exc_new, beta);
+    } else if (has_rd && kd == KIND_REALDATA) {
+      const int ptr1 = static_cast<int>(w(s, W_RDPTR)) + 1;
+      t_new = (ptr1 < Kr)
+                  ? p.rd_times[(s * static_cast<size_t>(Kr) + ptr1) * B + lane]
+                  : f_inf();
+    } else if (has_pw && kd == KIND_PIECEWISE) {
+      const size_t base = s * static_cast<size_t>(Kp) * B + lane;
+      t_new = piecewise_invert(e_fire, tmin, p.pw_times + base,
+                               p.pw_rates + base, Kp, B);
     }
+
+    // ---- write-back: never store a NaN time, flag the lane ----
+    uint32_t bits = 0u;
+    if (is_nan(t_new)) {
+      bits |= BIT_NONFINITE_TIME;
+      t_new = f_inf();
+    }
+    wf(s, W_TNEXT) = t_new;
+    w(s, W_CTR) = ctr_s + 1u;
+    if (has_hawkes && kd == KIND_HAWKES) {
+      if (!((exc_new - exc_new) == 0.f)) bits |= BIT_NONFINITE_STATE;
+      wf(s, W_EXC) = exc_new;
+      wf(s, W_EXCT) = tmin;
+    }
+    if (has_rd && kd == KIND_REALDATA) w(s, W_RDPTR) += 1u;
+
+    // ---- emit the event, advance the clock, next argmin ----
+    times[row] = tmin;
+    srcs[row] = s;
+    t = tmin;
+    nev += 1;
+    health |= bits;
+    fold(t_new, s);
+    tmin = nan_seen ? f_nan() : best;
+    s_star = nan_seen ? S : best_i;
   }
 
-  if (live && firer) {
-    for (int s = 0; s < S; ++s) {
-      const size_t xi = s * B + lane;
-      out.t_next[xi] = wf(s, W_TNEXT);
-      out.ctr[xi] = w(s, W_CTR);
-      out.exc[xi] = wf(s, W_EXC);
-      out.exc_t[xi] = wf(s, W_EXCT);
-      out.rd_ptr[xi] = static_cast<int32_t>(w(s, W_RDPTR));
-    }
-    out.t[lane] = t;
-    out.nev[lane] = nev;
-    out.health[lane] = health;
+  for (int s = 0; s < S; ++s) {
+    const size_t x = s * B + lane;
+    out.t_next[x] = wf(s, W_TNEXT);
+    out.ctr[x] = w(s, W_CTR);
+    out.exc[x] = wf(s, W_EXC);
+    out.exc_t[x] = wf(s, W_EXCT);
+    out.rd_ptr[x] = static_cast<int32_t>(w(s, W_RDPTR));
   }
+  out.t[lane] = t;
+  out.nev[lane] = nev;
+  out.health[lane] = health;
 }
 
 __global__ void threefry_kernel(const uint32_t* k0, const uint32_t* k1,
@@ -481,7 +488,7 @@ int rq_event_kernel_launch(void* const* params, void* const* carry_in,
                            int B, int S, int F, int Kr, int Kp, int steps,
                            float end_time, unsigned int opt_mask, int flags,
                            int blocks, int smem_bytes, void* stream) {
-  const long long need = 4LL * LANES * ((W_RS + __builtin_popcount(opt_mask)) * S + 10);
+  const long long need = 4LL * LANES * (W_RS + __builtin_popcount(opt_mask)) * S;
   if (S < 1 || S > RQ_MAX_S || B < 1 || steps < 0 || blocks < 1 ||
       static_cast<long long>(blocks) * LANES < B || smem_bytes != need ||
       (S < 32 && (opt_mask >> S) != 0u))
@@ -517,7 +524,7 @@ int rq_event_kernel_launch(void* const* params, void* const* carry_in,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<blocks, 2 * LANES, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, LANES, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       p, carry_from(carry_in), carry_from(carry_out),
       static_cast<float*>(times), static_cast<int32_t*>(srcs), B, S, F, Kr,
       Kp, steps, end_time, opt_mask, flags);

@@ -46,12 +46,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")
 
-#: Lanes per block (RQ_LANES in the kernel): a block is two warps, one
-#: that draws the fired sources of its 32 lanes and one that draws their
-#: Opt rows' reacts and reduces their clocks.
+#: Lanes per block (RQ_LANES in the kernel): one thread per lane, one
+#: warp per block, the finest grain the block scheduler spreads over the
+#: SMs.
 LANES_PER_BLOCK = 32
 #: Shared memory one block may take on Hopper; the largest shape the
-#: kernel takes (S = MAX_S, every source an Opt row) needs 169,216.
+#: kernel takes (S = MAX_S, every source an Opt row) needs 167,936.
 MAX_SMEM_BYTES = 232_448
 
 #: Launches per kernel since the last :func:`reset_launch_counts`; each
@@ -168,9 +168,9 @@ def check_kernel_shape(spec: KernelSpec) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """How one launch spreads over the card: ``lanes_per_block`` lanes in
-    each of ``blocks`` blocks of two warps, and ``smem_bytes`` of dynamic
-    shared memory per block."""
+    """How one launch spreads over the card: one thread per lane,
+    ``lanes_per_block`` lanes in each of ``blocks`` blocks, and
+    ``smem_bytes`` of dynamic shared memory per block."""
 
     lanes_per_block: int
     blocks: int
@@ -180,10 +180,9 @@ class Geometry:
 def geometry(spec: KernelSpec, B: int) -> Geometry:
     """The launch geometry of ``spec`` over ``B`` lanes.  Each lane keeps
     its per-source constants (k0, k1, kind, rate) and state (t_next, ctr,
-    exc, exc_t, rd_ptr), one react rate sum per (Opt row, source), and
-    two buffers of five words that its two warps exchange each step, in
-    shared memory: ``(9 + n_opt) * S + 10`` words."""
-    words = (9 + len(spec.opt_rows)) * spec.S + 10
+    exc, exc_t, rd_ptr), and one react rate sum per (Opt row, source), in
+    shared memory: ``(9 + n_opt) * S`` words."""
+    words = (9 + len(spec.opt_rows)) * spec.S
     return Geometry(lanes_per_block=LANES_PER_BLOCK,
                     blocks=-(-B // LANES_PER_BLOCK),
                     smem_bytes=LANES_PER_BLOCK * words * 4)

@@ -145,7 +145,7 @@ def test_geometry_at_the_headline_fills_the_card():
     assert (geom.blocks - 1) * geom.lanes_per_block < 10_000
     assert geom.blocks * geom.lanes_per_block >= 10_000
     assert geom.blocks >= 132  # every SM of an H100 gets a block
-    assert geom.smem_bytes == geom.lanes_per_block * 4 * ((9 + 1) * 11 + 10)
+    assert geom.smem_bytes == geom.lanes_per_block * 4 * (9 + 1) * 11
 
 
 @pytest.mark.parametrize("B", [1, 37, 1001])
@@ -156,7 +156,7 @@ def test_geometry_fits_the_largest_shape_the_kernel_takes(B):
     geom = kernels.geometry(spec, B)
     assert geom.smem_bytes <= kernels.MAX_SMEM_BYTES
     assert geom.smem_bytes == geom.lanes_per_block * 4 * (
-        (9 + kernels.MAX_S) * kernels.MAX_S + 10)
+        9 + kernels.MAX_S) * kernels.MAX_S
     assert geom.blocks == -(-B // geom.lanes_per_block)
 
 
@@ -165,4 +165,4 @@ def test_geometry_sizes_the_react_table_by_opt_rows(opt_rows):
     spec = dataclasses.replace(_spec(32), opt_rows=opt_rows)
     geom = kernels.geometry(spec, 37)
     assert geom.smem_bytes == geom.lanes_per_block * 4 * (
-        (9 + len(opt_rows)) * 32 + 10)
+        9 + len(opt_rows)) * 32
