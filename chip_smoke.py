@@ -14,8 +14,11 @@ Phases, each reported on its own line:
    the same prepared inputs, on what the headline does not run: the full
    five-kind mix (B=256), a replay-only mix (B=64), two Opt rows at
    non-adjacent indices (B=256), S=32 sources with four Opt rows at a
-   lane count that is a multiple of no block width (B=1,001), and that
-   mix again with one lane poisoned under each ``RQ_FAULT`` numeric mode;
+   lane count that is a multiple of no block width (B=1,001), S=32 with
+   every source an Opt row, the most shared memory a block takes, its
+   clocks started inside the horizon so that the rows react to each
+   other (B=37), and the four-Opt S=32 mix again with one lane poisoned
+   under each ``RQ_FAULT`` numeric mode;
 5. the headline at full width through the package's entry points,
    ``GraphBuilder`` -> ``stack_components`` -> ``simulate_batch`` ->
    ``feed_metrics_batch``/``num_posts`` (B=10,000 components of one Opt
@@ -24,8 +27,8 @@ Phases, each reported on its own line:
    then the kernel and its plain version replay the best run's inputs,
    each launch timed, and are held against each other on every lane.
    The kernel is timed twice: on the device alone (the row's ``ms``),
-   and with the wrapper's host work inside the events (how PR 1's
-   ``ms_before`` was taken).  The headline's seeds give 12,300,664
+   and with the wrapper's host work inside the events (the row's
+   ``ms_with_host``).  The headline's seeds give 12,300,664
    events, a mean time-in-top-1 of 80.3196 and 230.30 posts per lane;
    any other count fails.
 
@@ -69,12 +72,14 @@ ISSUE_PER_S = SMS * 128 * CLOCK_HZ
 INT32_PER_S = SMS * 64 * CLOCK_HZ
 
 # Operations per unit of work of the event step (the reckoning of the
-# bound in PERF.md), as (integer, float).  A threefry-2x32 block: 2
-# initial key adds, 5 groups of 4 rounds (add, two shifts, or, xor) and 3
-# injection adds, plus the parity word (2 xors), all integer.  An Exp(1)
+# bound in PERF.md), as (integer, float), each counted as the instruction
+# sm_90 has for it.  A threefry-2x32 block: the parity word (one
+# three-input logic op), 2 initial key adds, 20 rounds of add, rotate (one
+# funnel shift) and xor, and 5 key injections of one add per word (the
+# round constant folds into a three-input add), all integer.  An Exp(1)
 # draw from its bits: an integer shift, then convert, scale, negate,
 # log1pf (about 20) and negate.
-OPS_DRAW = (2 + 5 * (4 * 5 + 3) + 2 + 1, 24)
+OPS_DRAW = (1 + 2 + 20 * 3 + 5 * 2 + 1, 24)
 
 
 def ops_per_step(S):
@@ -97,17 +102,12 @@ def ops_react_scan(F):
 OPS_REACT_DRAW = (OPS_DRAW[0], OPS_DRAW[1] + 4)  # draw, candidate and min
 
 
-# Batch sizes: the headline at full width, and the parity mixes.
+# The headline's batch size, at full width.
 HEADLINE_B = 10_000
-PARITY_B = {"full mix": 256, "replay-only": 64, "two Opt rows": 256,
-            "S=32": 1001}
 # What the headline's seeds (10,000.. for the timed runs) give at a
 # batch size, exactly, as (events, mean time-in-top-1, posts per lane):
 # the kernel is bit-identical to its plain version.
 HEADLINE_RESULT = {10_000: (12_300_664, 80.3196, 230.30)}
-# The kernel's mean ms per launch at the headline before its redesign
-# (PERF.md, PR 1's sixth chip call).
-MS_BEFORE = 1.676
 
 
 def fail(msg):
@@ -185,6 +185,41 @@ def s32_component(B, device):
     cfg, p0, a0 = gb.build(capacity=64, device=device)
     params, adj = rt.stack_components([p0] * B, [a0] * B)
     return cfg, params, adj, 100
+
+
+def s32_all_opt_component(B, device):
+    """S = 32 = MAX_S with every source an Opt row on two of 8 feeds (r and
+    3r + 1 mod 8), the most shared memory a block takes."""
+    gb = rt.GraphBuilder(n_sinks=8, end_time=0.25)
+    for r in range(kernels.MAX_S):
+        gb.add_opt(q=0.5 + 0.05 * r, sinks=[r % 8, (3 * r + 1) % 8])
+    cfg, p0, a0 = gb.build(capacity=64, device=device)
+    params, adj = rt.stack_components([p0] * B, [a0] * B)
+    return cfg, params, adj, 100
+
+
+def started_clocks(prep, seed=0):
+    """``prep`` with every clock drawn uniform on [0, T) from ``seed``: an
+    Opt row's clock starts at +inf, so a component of Opt rows alone fires
+    only from such a start."""
+    t = np.random.RandomState(seed).uniform(
+        0.0, prep.spec.end_time, tuple(prep.carry["t_next"].shape))
+    t_next = torch.from_numpy(t.astype(np.float32)).to(
+        prep.carry["t_next"].device)
+    return dataclasses.replace(prep, carry=dict(prep.carry, t_next=t_next))
+
+
+# Phase 4's mixes, by key: (label, component, batch size, chunks per
+# launch, clocks started inside the horizon).
+PARITY_MIXES = {
+    "full_mix": ("full mix", full_mix_component, 256, 8, False),
+    "replay": ("replay-only", replay_component, 64, 8, False),
+    "two_opt": ("two Opt rows", two_opt_component, 256, 2, False),
+    "s32": ("S=32", s32_component, 1001, 2, False),
+    "s32_all_opt": ("S=32, every source Opt", s32_all_opt_component, 37, 1,
+                    True),
+}
+POISON_MODES = ("nan", "inf")
 
 
 def phase_device():
@@ -283,21 +318,29 @@ def compare_runs(name, prep, max_chunks):
     return compare(f"phase 4 {name}", kern, plain), kern
 
 
-def poisoned(mode, dev):
-    """The S=32 mix with lane 7 poisoned by ``RQ_FAULT=numeric:<mode>``;
-    the fault is read when the initial state is prepared."""
-    B = PARITY_B["S=32"]
-    cfg, params, adj, mc = s32_component(B, dev)
+def parity_prep(key, dev, fault=None):
+    """Phase 4's mix ``key`` prepared on ``dev``, with ``RQ_FAULT`` set
+    to ``fault`` while the initial state is prepared (the fault is read
+    then): ``(label, prepared inputs, max_chunks)``."""
+    label, make, B, k, start = PARITY_MIXES[key]
+    cfg, params, adj, mc = make(B, dev)
     old = os.environ.get(faultinject.ENV_FAULT)
-    os.environ[faultinject.ENV_FAULT] = f"numeric:{mode}@lane7"
+    if fault is not None:
+        os.environ[faultinject.ENV_FAULT] = fault
     try:
-        prep = event_engine.prepare(cfg, params, adj, np.arange(B), 2)
+        prep = event_engine.prepare(cfg, params, adj, np.arange(B), k)
     finally:
         if old is None:
-            del os.environ[faultinject.ENV_FAULT]
+            os.environ.pop(faultinject.ENV_FAULT, None)
         else:
             os.environ[faultinject.ENV_FAULT] = old
-    out, kern = compare_runs(f"S=32, lane 7 poisoned ({mode})", prep, mc)
+    return label, started_clocks(prep) if start else prep, mc
+
+
+def poisoned(mode, dev):
+    """The S=32 mix with lane 7 poisoned by ``RQ_FAULT=numeric:<mode>``."""
+    label, prep, mc = parity_prep("s32", dev, f"numeric:{mode}@lane7")
+    out, kern = compare_runs(f"{label}, lane 7 poisoned ({mode})", prep, mc)
     health = from_bits32(kern[0]["health"]).cpu()
     want = (numerics.BIT_NONFINITE_TIME if mode == "nan"
             else numerics.BIT_NONFINITE_STATE)
@@ -309,16 +352,10 @@ def poisoned(mode, dev):
 
 def phase_parity(dev):
     out = {}
-    for name, make, key, k in (
-            ("full mix", full_mix_component, "full_mix", 8),
-            ("replay-only", replay_component, "replay", 8),
-            ("two Opt rows", two_opt_component, "two_opt", 2),
-            ("S=32", s32_component, "s32", 2)):
-        B = PARITY_B[name]
-        cfg, params, adj, mc = make(B, dev)
-        prep = event_engine.prepare(cfg, params, adj, np.arange(B), k)
-        out[key] = compare_runs(name, prep, mc)[0]
-    for mode in ("nan", "inf"):
+    for key in PARITY_MIXES:
+        label, prep, mc = parity_prep(key, dev)
+        out[key] = compare_runs(label, prep, mc)[0]
+    for mode in POISON_MODES:
         out[f"s32_poisoned_{mode}"] = poisoned(mode, dev)
     return out
 
@@ -342,8 +379,8 @@ def timed(launch_fn, ms):
     """``launch_fn`` with a CUDA-event pair around each call, appending
     each call's milliseconds to ``ms``.  The card idles while the host
     prepares the launch, so the time includes the wrapper's host work (the
-    measure of PR 1's kernel row, and the right one for the plain version,
-    whose many small operations the host issues one by one)."""
+    kernel row's ``ms_with_host``, and the right measure for the plain
+    version, whose many small operations the host issues one by one)."""
     def run(spec, params, carry):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -517,8 +554,8 @@ def phase_headline(dev):
     print(f"  kernel ms per launch on the device {['%.4f' % x for x in k_ms]} "
           f"(mean {res['kernel_ms_mean']:.4f}); with the wrapper's host work "
           f"{['%.4f' % x for x in kh_ms]} (mean "
-          f"{res['kernel_with_host_ms_mean']:.4f}; PR 1's {MS_BEFORE} was "
-          f"taken so); plain version ms per launch "
+          f"{res['kernel_with_host_ms_mean']:.4f}); plain version ms per "
+          f"launch "
           f"{['%.1f' % x for x in p_ms]} (mean {res['plain_ms_mean']:.1f}); "
           f"bound per launch {bound['bound_ms'] / len(k_ms):.4f} ms by "
           f"{bound['bound_by']} ({bound['int_ops']:.4g} integer and "
@@ -547,10 +584,11 @@ def main():
         "replaces": "redqueen_tpu/ops/pallas_engine.py:311",
         "launches": hl["launches"]["event_kernel"],
         "max_abs_err": hl["parity"]["max_abs_err"],
-        "ms": hl["kernel_ms_mean"], "plain_ms": hl["plain_ms_mean"],
+        "ms": hl["kernel_ms_mean"],
+        "ms_with_host": hl["kernel_with_host_ms_mean"],
+        "plain_ms": hl["plain_ms_mean"],
         "bound_ms": hl["bound"]["bound_ms"] / n_launch,
         "bound_by": hl["bound"]["bound_by"], "library_ms": None,
-        "ms_before": MS_BEFORE,
     }
     result["total_s"] = time.perf_counter() - t_start
     print(f"total {result['total_s']:.1f} s")

@@ -27,18 +27,19 @@
 //
 // A step is a chain of dependent operations, so the kernel shortens the
 // chain rather than adding threads (a lane spread over G threads was
-// measured slower at every G > 1: see PERF.md).  Three independent pieces
-// of work run side by side in one straight block once s_star is known:
-// the fired source's draw on (key; ctr, 0), the first Opt row's react
-// draw on (key; ctr, 1) (it reads ctr[r] with r != s_star, which the fire
-// does not touch), and a pairwise-tree argmin over the clocks the step
-// leaves as they are (every source but s_star and the Opt rows).  The
-// fired source's new clock and the Opt rows' clocks are folded into that
-// minimum afterwards, so the next step's argmin adds only a few compares
-// to the chain; a step that absorbs moves no clock and keeps its argmin.
-// Further Opt rows draw two at a time.  No draw is made before s_star is
-// known; an Opt row that does not react draws in step with the others and
-// drops the result.
+// measured slower at every G > 1: see PERF.md).  Once s_star is known, the
+// draws run two at a time with their threefry chains interleaved: the
+// fired source's on (key; ctr, 0) beside the first Opt row's on (key; ctr,
+// 1) (it reads ctr[r] with r != s_star, which the fire does not touch),
+// then the other Opt rows pairwise.  Beside them a pairwise-tree argmin
+// reduces the clocks the step leaves as they are (every source but s_star
+// and the Opt rows); the new clocks are folded into that minimum as they
+// come, so the next step's argmin adds only a few compares to the chain.
+// A step that absorbs moves no clock and keeps its argmin.
+//
+// Only the draws the step uses are made: each lane keeps, per source, the
+// mask of the Opt rows that react to it (rs > 0, r != s), and only those
+// rows draw.
 //
 // What bounds it.  At the headline shape (B = 10,000 lanes, S = 11,
 // F = 10) 10,000 threads are about 2.4 warps per SM, fewer than one per
@@ -62,7 +63,6 @@
 #include "threefry.cuh"
 
 #define RQ_MAX_S 32
-#define RQ_LANES 32
 
 namespace {
 
@@ -74,7 +74,7 @@ constexpr uint32_t BIT_NONFINITE_TIME = 1u;
 constexpr uint32_t BIT_NONFINITE_STATE = 2u;
 constexpr int NEWTON_ITERS = 24;
 constexpr float TINY = 1e-30f;
-constexpr int LANES = RQ_LANES;  // lanes (threads) per block
+constexpr int LANES = 32;   // lanes (threads) per block: one warp
 constexpr int BLOCK = 128;       // threads per block of the threefry check
 
 // Specialisation flags (the kinds the component has).
@@ -93,7 +93,8 @@ constexpr int W_CTR = 5;
 constexpr int W_EXC = 6;
 constexpr int W_EXCT = 7;
 constexpr int W_RDPTR = 8;
-constexpr int W_RS = 9;
+constexpr int W_REACT = 9;  // bit r: Opt row r != s reacts to s (rs > 0)
+constexpr int W_RS = 10;
 
 __device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float f_nan() { return __int_as_float(0x7fc00000); }
@@ -227,6 +228,7 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
   {
     // f outer, so each rs is summed in f order from 0, as the plain
     // version's per-event sum.
+    for (int s = 0; s < S; ++s) w(s, W_REACT) = 0u;
     int j = 0;
     for (uint32_t m = opt_mask; m != 0u; m &= m - 1u, ++j) {
       const int r = __ffs(m) - 1;
@@ -241,6 +243,8 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
           wf(s, W_RS + j) = wf(s, W_RS + j) + aff * wt;
         }
       }
+      for (int s = 0; s < S; ++s)
+        if (s != r && wf(s, W_RS + j) > 0.f) w(s, W_REACT) |= 1u << r;
     }
   }
 
@@ -305,16 +309,20 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
       continue;
     }
 
-    // ---- the fired source's draw on (key; ctr, 0) beside the first Opt
-    // row's react draw on (key; ctr, 1); then the other Opt rows' reacts,
-    // two at a time.  A react touches only its own row r != s_star. ----
+    // ---- the fired source's draw on (key; ctr, 0) and the react draws
+    // of the Opt rows that react to it, each on (key; ctr, 1), two at a
+    // time.  A react touches only its own row r != s_star. ----
     const int s = s_star;
     const uint32_t ctr_s = w(s, W_CTR);
     const int kd = static_cast<int>(w(s, W_KIND));
     const float rate = wf(s, W_RATE);
-    // The clocks this step leaves as they are, every source but s and the
-    // Opt rows, are reduced beside the draws; the others are folded in as
-    // their new values come.
+    uint32_t m = w(s, W_REACT);
+    auto take = [&]() -> int {
+      if (m == 0u) return -1;
+      const int r = __ffs(m) - 1;
+      m &= m - 1u;
+      return r;
+    };
     float best;
     int best_i;
     bool nan_seen;
@@ -325,63 +333,46 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
         best_i = i;
       }
     };
-    const uint32_t keep = ~(opt_mask | (1u << s));
-    // Opt row r (ordinal j, clock tr) reacts to s with rs[j][s] when
-    // rs > 0; a row that does not react draws in step and drops it.
-    auto react = [&](int r, int j, float e, float tr) {
-      const float rs = wf(s, W_RS + j);
-      if (r == s) return;
-      if (rs > 0.f) {
-        tr = jmin(tr, tmin + e / jmax(rs, TINY));
-        wf(r, W_TNEXT) = tr;
-        w(r, W_CTR) += 1u;
+    argmin_of(~(m | (1u << s)), best, best_i, nan_seen);
+    auto draw_pair = [&](int a, uint32_t stream_a, int b, float& ea,
+                         float& eb) {
+      if (b < 0) {
+        const uint32_t k0[1] = {w(a, W_K0)}, k1[1] = {w(a, W_K1)};
+        const uint32_t c[1] = {w(a, W_CTR)};
+        float e[1];
+        exp_draws<1>(k0, k1, c, stream_a, e);
+        ea = e[0];
+      } else {
+        const uint32_t k0[2] = {w(a, W_K0), w(b, W_K0)};
+        const uint32_t k1[2] = {w(a, W_K1), w(b, W_K1)};
+        const uint32_t c[2] = {w(a, W_CTR), w(b, W_CTR)};
+        float e[2];
+        exp_draws<2>(k0, k1, c, stream_a, e);
+        ea = e[0];
+        eb = e[1];
       }
+    };
+    auto react = [&](int r, float e, float tr) {
+      const float rs = wf(s, W_RS + __popc(opt_mask & ((1u << r) - 1u)));
+      tr = jmin(tr, tmin + e / jmax(rs, TINY));
+      wf(r, W_TNEXT) = tr;
+      w(r, W_CTR) += 1u;
       fold(tr, r);
     };
-    uint32_t m = opt_mask;
-    float e_fire;
-    if (m != 0u) {
-      const int r = __ffs(m) - 1;
-      m &= m - 1u;
-      const uint32_t k0[2] = {w(s, W_K0), w(r, W_K0)};
-      const uint32_t k1[2] = {w(s, W_K1), w(r, W_K1)};
-      const uint32_t c[2] = {ctr_s, w(r, W_CTR)};
-      const float tr = wf(r, W_TNEXT);
-      argmin_of(keep, best, best_i, nan_seen);
-      float e[2];
-      exp_draws<2>(k0, k1, c, 0u, e);
-      e_fire = e[0];
-      react(r, 0, e[1], tr);
-    } else {
-      const uint32_t k0[1] = {w(s, W_K0)}, k1[1] = {w(s, W_K1)};
-      const uint32_t c[1] = {ctr_s};
-      argmin_of(keep, best, best_i, nan_seen);
-      float e[1];
-      exp_draws<1>(k0, k1, c, 0u, e);
-      e_fire = e[0];
+    float e_fire, e_b;
+    {
+      const int b = take();
+      const float tb = b >= 0 ? wf(b, W_TNEXT) : 0.f;
+      draw_pair(s, 0u, b, e_fire, e_b);
+      if (b >= 0) react(b, e_b, tb);
     }
-    for (int j = 1; m != 0u; j += 2) {
-      const int ra = __ffs(m) - 1;
-      m &= m - 1u;
-      if (m != 0u) {
-        const int rb = __ffs(m) - 1;
-        m &= m - 1u;
-        const uint32_t k0[2] = {w(ra, W_K0), w(rb, W_K0)};
-        const uint32_t k1[2] = {w(ra, W_K1), w(rb, W_K1)};
-        const uint32_t c[2] = {w(ra, W_CTR), w(rb, W_CTR)};
-        const float ta = wf(ra, W_TNEXT), tb = wf(rb, W_TNEXT);
-        float e[2];
-        exp_draws<2>(k0, k1, c, 1u, e);
-        react(ra, j, e[0], ta);
-        react(rb, j + 1, e[1], tb);
-      } else {
-        const uint32_t k0[1] = {w(ra, W_K0)}, k1[1] = {w(ra, W_K1)};
-        const uint32_t c[1] = {w(ra, W_CTR)};
-        const float ta = wf(ra, W_TNEXT);
-        float e[1];
-        exp_draws<1>(k0, k1, c, 1u, e);
-        react(ra, j, e[0], ta);
-      }
+    while (m != 0u) {
+      const int a = take(), b = take();
+      const float ta = wf(a, W_TNEXT), tb = b >= 0 ? wf(b, W_TNEXT) : 0.f;
+      float e_a;
+      draw_pair(a, 1u, b, e_a, e_b);
+      react(a, e_a, ta);
+      if (b >= 0) react(b, e_b, tb);
     }
 
     // ---- per-kind resample (Opt and uncompiled kinds stay +inf) ----
@@ -472,7 +463,17 @@ extern "C" {
 
 int rq_max_sources() { return RQ_MAX_S; }
 
-int rq_lanes_per_block() { return RQ_LANES; }
+// The launch geometry of B lanes, S sources and the Opt rows in opt_mask:
+// one warp of lanes to a block, as many blocks as B needs, and the dynamic
+// shared memory of each block in bytes, (W_RS + number of Opt rows) * S
+// words of each lane's column.
+void rq_event_kernel_geometry(int B, int S, unsigned int opt_mask,
+                              int* lanes_per_block, int* blocks,
+                              int* smem_bytes) {
+  *lanes_per_block = LANES;
+  *blocks = (B + LANES - 1) / LANES;
+  *smem_bytes = 4 * LANES * (W_RS + __builtin_popcount(opt_mask)) * S;
+}
 
 const char* rq_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -480,19 +481,18 @@ const char* rq_error_string(int code) {
 
 // params: 13 device pointers in the order of ops/event_step.PARAM_NAMES;
 // carry_in / carry_out: 8 device pointers in the order of CARRY_NAMES.
-// blocks of RQ_LANES threads, smem_bytes of dynamic shared memory each:
-// RQ_LANES * (9 + number of Opt rows) * S words.  Returns
+// Launched in the geometry rq_event_kernel_geometry gives.  Returns
 // cudaGetLastError() after the launch (0 on success).
 int rq_event_kernel_launch(void* const* params, void* const* carry_in,
                            void* const* carry_out, void* times, void* srcs,
                            int B, int S, int F, int Kr, int Kp, int steps,
                            float end_time, unsigned int opt_mask, int flags,
-                           int blocks, int smem_bytes, void* stream) {
-  const long long need = 4LL * LANES * (W_RS + __builtin_popcount(opt_mask)) * S;
-  if (S < 1 || S > RQ_MAX_S || B < 1 || steps < 0 || blocks < 1 ||
-      static_cast<long long>(blocks) * LANES < B || smem_bytes != need ||
+                           void* stream) {
+  if (S < 1 || S > RQ_MAX_S || B < 1 || steps < 0 ||
       (S < 32 && (opt_mask >> S) != 0u))
     return static_cast<int>(cudaErrorInvalidValue);
+  int lanes, blocks, smem_bytes;
+  rq_event_kernel_geometry(B, S, opt_mask, &lanes, &blocks, &smem_bytes);
   Params p;
   p.kind = static_cast<const int32_t*>(params[0]);
   p.rate = static_cast<const float*>(params[1]);
@@ -524,7 +524,7 @@ int rq_event_kernel_launch(void* const* params, void* const* carry_in,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<blocks, LANES, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, lanes, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       p, carry_from(carry_in), carry_from(carry_out),
       static_cast<float*>(times), static_cast<int32_t*>(srcs), B, S, F, Kr,
       Kp, steps, end_time, opt_mask, flags);

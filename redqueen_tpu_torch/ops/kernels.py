@@ -29,8 +29,8 @@ import torch
 from .event_step import CARRY_NAMES, PARAM_NAMES, KernelSpec
 
 __all__ = ["MAX_S", "NVCC_FLAGS", "BUILD_DIR", "build", "LAUNCHES",
-           "reset_launch_counts", "check_kernel_shape", "LANES_PER_BLOCK",
-           "Geometry", "geometry", "launch_event_kernel",
+           "reset_launch_counts", "check_kernel_shape", "Geometry",
+           "geometry", "launch_event_kernel",
            "threefry_on_device"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -45,14 +45,6 @@ MAX_S = 32
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")
-
-#: Lanes per block (RQ_LANES in the kernel): one thread per lane, one
-#: warp per block, the finest grain the block scheduler spreads over the
-#: SMs.
-LANES_PER_BLOCK = 32
-#: Shared memory one block may take on Hopper; the largest shape the
-#: kernel takes (S = MAX_S, every source an Opt row) needs 167,936.
-MAX_SMEM_BYTES = 232_448
 
 #: Launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else.
@@ -130,19 +122,17 @@ def _lib() -> ctypes.CDLL:
         vp, vp, vp, vp, vp,                     # params, carry in/out, log
         ci, ci, ci, ci, ci, ci,                 # B, S, F, Kr, Kp, steps
         ctypes.c_float, ctypes.c_uint, ci,      # end_time, opt_mask, flags
-        ci, ci,                                 # blocks, smem bytes
         vp]                                     # stream
     lib.rq_event_kernel_launch.restype = ci
     lib.rq_threefry_launch.argtypes = [vp] * 6 + [ci, vp]
     lib.rq_threefry_launch.restype = ci
-    lib.rq_lanes_per_block.argtypes = []
-    lib.rq_lanes_per_block.restype = ci
-    if (lib.rq_max_sources(), lib.rq_lanes_per_block()) != (
-            MAX_S, LANES_PER_BLOCK):
+    lib.rq_event_kernel_geometry.argtypes = [ci, ci, ctypes.c_uint] + [
+        ctypes.POINTER(ci)] * 3
+    lib.rq_event_kernel_geometry.restype = None
+    if lib.rq_max_sources() != MAX_S:
         raise RuntimeError(
-            f"kernel library bounds RQ_MAX_S={lib.rq_max_sources()}, "
-            f"RQ_LANES={lib.rq_lanes_per_block()} disagree with "
-            f"ops.kernels MAX_S={MAX_S}, LANES_PER_BLOCK={LANES_PER_BLOCK}")
+            f"kernel library bound RQ_MAX_S={lib.rq_max_sources()} "
+            f"disagrees with ops.kernels MAX_S={MAX_S}")
     _LIBS["event_kernel"] = lib
     return lib
 
@@ -177,15 +167,22 @@ class Geometry:
     smem_bytes: int
 
 
+def _opt_mask(spec: KernelSpec) -> int:
+    mask = 0
+    for r in spec.opt_rows:
+        mask |= 1 << r
+    return mask
+
+
 def geometry(spec: KernelSpec, B: int) -> Geometry:
-    """The launch geometry of ``spec`` over ``B`` lanes.  Each lane keeps
-    its per-source constants (k0, k1, kind, rate) and state (t_next, ctr,
-    exc, exc_t, rd_ptr), and one react rate sum per (Opt row, source), in
-    shared memory: ``(9 + n_opt) * S`` words."""
-    words = (9 + len(spec.opt_rows)) * spec.S
-    return Geometry(lanes_per_block=LANES_PER_BLOCK,
-                    blocks=-(-B // LANES_PER_BLOCK),
-                    smem_bytes=LANES_PER_BLOCK * words * 4)
+    """The geometry the event kernel launches ``spec`` over ``B`` lanes
+    in, as the kernel's library computes it (building it on first use).
+    Each lane keeps its per-source constants, state and react table in
+    shared memory."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    _lib().rq_event_kernel_geometry(B, spec.S, _opt_mask(spec),
+                                    *(ctypes.byref(v) for v in vals))
+    return Geometry(*(v.value for v in vals))
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -250,18 +247,13 @@ def launch_event_kernel(spec: KernelSpec, params: Dict[str, torch.Tensor],
     p_arr = ptrs(*(params[nm].data_ptr() for nm in PARAM_NAMES))
     ci_arr = cptrs(*(carry[nm].data_ptr() for nm in CARRY_NAMES))
     co_arr = cptrs(*(out[nm].data_ptr() for nm in CARRY_NAMES))
-    opt_mask = 0
-    for r in spec.opt_rows:
-        opt_mask |= 1 << r
-    geom = geometry(spec, B)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.rq_event_kernel_launch(
         ctypes.cast(p_arr, ctypes.c_void_p),
         ctypes.cast(ci_arr, ctypes.c_void_p),
         ctypes.cast(co_arr, ctypes.c_void_p),
         times.data_ptr(), srcs.data_ptr(), B, S, F, Kr, Kp, steps,
-        float(spec.end_time), opt_mask, _flags(spec), geom.blocks,
-        geom.smem_bytes, stream)
+        float(spec.end_time), _opt_mask(spec), _flags(spec), stream)
     _check(rc, "event kernel")
     LAUNCHES["event_kernel"] += 1
     return out, times, srcs

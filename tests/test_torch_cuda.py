@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import redqueen_tpu_torch as rt
 from redqueen_tpu_torch.ops import event_engine, event_step, kernels
 from redqueen_tpu_torch.ops import threefry as ttf
@@ -146,6 +147,31 @@ def test_device_threefry_matches_plain(card):
                                       ("s32", 1001, 1)])
 def test_event_kernel_matches_plain_version(card, name, B, k):
     _assert_bit_identical(*_drive_both(name, B, k, card))
+
+
+@pytest.mark.parametrize("started", [False, True])
+def test_event_kernel_with_every_source_an_opt_row(card, started):
+    # S = MAX_S with every source an Opt row takes the most shared memory a
+    # block takes (over 48 KB, so the launch raises the block's limit), at
+    # B = 37, a multiple of no block width.  An Opt clock starts at +inf,
+    # so nothing fires unless the clocks are started inside the horizon;
+    # started, the rows react to each other: the fire paired with the first
+    # reacting row, the other reacting rows two at a time.
+    cfg, params, adj, mc = chip_smoke.s32_all_opt_component(37, card)
+    prep = event_engine.prepare(cfg, params, adj, np.arange(37), 1)
+    if started:
+        prep = chip_smoke.started_clocks(prep)
+    kern = event_engine.drive(prep, kernels.launch_event_kernel, mc)
+    plain = event_engine.drive(prep, event_step.run_launch, mc)
+    torch.cuda.synchronize()
+    _assert_bit_identical(kern, plain)
+    nev = int(kern[0]["nev"].sum())
+    draws = int((ttf.from_bits32(kern[0]["ctr"])
+                 - ttf.from_bits32(prep.carry["ctr"])).sum())
+    if started:
+        assert nev > 37 and draws > 2 * nev
+    else:
+        assert nev == 0 and draws == 0
 
 
 def test_event_kernel_replay_only_bit_identical(card):

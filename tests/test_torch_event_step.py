@@ -6,7 +6,6 @@ numpy-made inputs (torch's and XLA's CPU exp differ by at most 1 ulp,
 which the Hawkes compensator amplifies where it cancels: see that
 test); and the kernel wrapper's shape limit."""
 
-import dataclasses
 import jax  # noqa: F401  (platform selection happens in conftest)
 import jax.numpy as jnp
 import numpy as np
@@ -135,34 +134,3 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     params = {nm: torch.zeros(2, 1) for nm in tstep.PARAM_NAMES}
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.launch_event_kernel(spec, params, {})
-
-
-def test_geometry_at_the_headline_fills_the_card():
-    spec = dataclasses.replace(_spec(11), F=10)
-    geom = kernels.geometry(spec, 10_000)
-    assert geom.lanes_per_block == kernels.LANES_PER_BLOCK
-    assert geom.lanes_per_block % 32 == 0  # whole warps
-    assert (geom.blocks - 1) * geom.lanes_per_block < 10_000
-    assert geom.blocks * geom.lanes_per_block >= 10_000
-    assert geom.blocks >= 132  # every SM of an H100 gets a block
-    assert geom.smem_bytes == geom.lanes_per_block * 4 * (9 + 1) * 11
-
-
-@pytest.mark.parametrize("B", [1, 37, 1001])
-def test_geometry_fits_the_largest_shape_the_kernel_takes(B):
-    # S = MAX_S with every source an Opt row needs the most shared memory.
-    spec = dataclasses.replace(_spec(kernels.MAX_S),
-                               opt_rows=tuple(range(kernels.MAX_S)))
-    geom = kernels.geometry(spec, B)
-    assert geom.smem_bytes <= kernels.MAX_SMEM_BYTES
-    assert geom.smem_bytes == geom.lanes_per_block * 4 * (
-        9 + kernels.MAX_S) * kernels.MAX_S
-    assert geom.blocks == -(-B // geom.lanes_per_block)
-
-
-@pytest.mark.parametrize("opt_rows", [(), (0,), (3, 10, 17, 31)])
-def test_geometry_sizes_the_react_table_by_opt_rows(opt_rows):
-    spec = dataclasses.replace(_spec(32), opt_rows=opt_rows)
-    geom = kernels.geometry(spec, 37)
-    assert geom.smem_bytes == geom.lanes_per_block * 4 * (
-        9 + len(opt_rows)) * 32
