@@ -37,9 +37,12 @@
 // come, so the next step's argmin adds only a few compares to the chain.
 // A step that absorbs moves no clock and keeps its argmin.
 //
-// Only the draws the step uses are made: each lane keeps, per source, the
-// mask of the Opt rows that react to it (rs > 0, r != s), and only those
-// rows draw.
+// No draw is made before s_star is known, but once it is, every Opt row
+// draws, whether or not it reacts to s_star: the rows that do not (s_star
+// itself among them) drop their draw.  That is deliberate.  The set of
+// reacting rows differs between the lanes of a warp, and drawing only for
+// it splits the warp into paths that run one after the other: measured
+// 24% slower at the headline (PERF.md).
 //
 // What bounds it.  At the headline shape (B = 10,000 lanes, S = 11,
 // F = 10) 10,000 threads are about 2.4 warps per SM, fewer than one per
@@ -93,8 +96,7 @@ constexpr int W_CTR = 5;
 constexpr int W_EXC = 6;
 constexpr int W_EXCT = 7;
 constexpr int W_RDPTR = 8;
-constexpr int W_REACT = 9;  // bit r: Opt row r != s reacts to s (rs > 0)
-constexpr int W_RS = 10;
+constexpr int W_RS = 9;
 
 __device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float f_nan() { return __int_as_float(0x7fc00000); }
@@ -228,7 +230,6 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
   {
     // f outer, so each rs is summed in f order from 0, as the plain
     // version's per-event sum.
-    for (int s = 0; s < S; ++s) w(s, W_REACT) = 0u;
     int j = 0;
     for (uint32_t m = opt_mask; m != 0u; m &= m - 1u, ++j) {
       const int r = __ffs(m) - 1;
@@ -243,8 +244,6 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
           wf(s, W_RS + j) = wf(s, W_RS + j) + aff * wt;
         }
       }
-      for (int s = 0; s < S; ++s)
-        if (s != r && wf(s, W_RS + j) > 0.f) w(s, W_REACT) |= 1u << r;
     }
   }
 
@@ -309,20 +308,16 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
       continue;
     }
 
-    // ---- the fired source's draw on (key; ctr, 0) and the react draws
-    // of the Opt rows that react to it, each on (key; ctr, 1), two at a
-    // time.  A react touches only its own row r != s_star. ----
+    // ---- the fired source's draw on (key; ctr, 0) and every Opt row's
+    // react draw on (key; ctr, 1), two at a time.  A react touches only
+    // its own row r != s_star. ----
     const int s = s_star;
     const uint32_t ctr_s = w(s, W_CTR);
     const int kd = static_cast<int>(w(s, W_KIND));
     const float rate = wf(s, W_RATE);
-    uint32_t m = w(s, W_REACT);
-    auto take = [&]() -> int {
-      if (m == 0u) return -1;
-      const int r = __ffs(m) - 1;
-      m &= m - 1u;
-      return r;
-    };
+    // The clocks this step leaves as they are, every source but s and the
+    // Opt rows, are reduced beside the draws; the others are folded in as
+    // their new values come.
     float best;
     int best_i;
     bool nan_seen;
@@ -333,46 +328,54 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
         best_i = i;
       }
     };
-    argmin_of(~(m | (1u << s)), best, best_i, nan_seen);
-    auto draw_pair = [&](int a, uint32_t stream_a, int b, float& ea,
-                         float& eb) {
+    argmin_of(~(opt_mask | (1u << s)), best, best_i, nan_seen);
+    // The Opt rows in opt_mask order, -1 past the last; opt_mask is the
+    // same in every lane, so every branch on a row is uniform in a warp.
+    uint32_t m = opt_mask;
+    auto take = [&]() -> int {
+      if (m == 0u) return -1;
+      const int r = __ffs(m) - 1;
+      m &= m - 1u;
+      return r;
+    };
+    // Opt row r (clock tr, read before its draw) reacts to s with rs[j][s]
+    // when rs > 0; a row that does not react, s itself among them, drops
+    // its draw.
+    auto react = [&](int r, float e, float tr) {
+      if (r == s) return;
+      const float rs = wf(s, W_RS + __popc(opt_mask & ((1u << r) - 1u)));
+      if (rs > 0.f) {
+        tr = jmin(tr, tmin + e / jmax(rs, TINY));
+        wf(r, W_TNEXT) = tr;
+        w(r, W_CTR) += 1u;
+      }
+      fold(tr, r);
+    };
+    // Exp(1) draws of source a on (key; ctr, stream_a) and, when Opt row
+    // b >= 0, of b on (key; ctr, 1), their threefry chains interleaved;
+    // then b's react.
+    auto draw_pair = [&](int a, uint32_t stream_a, int b) -> float {
       if (b < 0) {
         const uint32_t k0[1] = {w(a, W_K0)}, k1[1] = {w(a, W_K1)};
         const uint32_t c[1] = {w(a, W_CTR)};
         float e[1];
         exp_draws<1>(k0, k1, c, stream_a, e);
-        ea = e[0];
-      } else {
-        const uint32_t k0[2] = {w(a, W_K0), w(b, W_K0)};
-        const uint32_t k1[2] = {w(a, W_K1), w(b, W_K1)};
-        const uint32_t c[2] = {w(a, W_CTR), w(b, W_CTR)};
-        float e[2];
-        exp_draws<2>(k0, k1, c, stream_a, e);
-        ea = e[0];
-        eb = e[1];
+        return e[0];
       }
+      const uint32_t k0[2] = {w(a, W_K0), w(b, W_K0)};
+      const uint32_t k1[2] = {w(a, W_K1), w(b, W_K1)};
+      const uint32_t c[2] = {w(a, W_CTR), w(b, W_CTR)};
+      const float tb = wf(b, W_TNEXT);
+      float e[2];
+      exp_draws<2>(k0, k1, c, stream_a, e);
+      react(b, e[1], tb);
+      return e[0];
     };
-    auto react = [&](int r, float e, float tr) {
-      const float rs = wf(s, W_RS + __popc(opt_mask & ((1u << r) - 1u)));
-      tr = jmin(tr, tmin + e / jmax(rs, TINY));
-      wf(r, W_TNEXT) = tr;
-      w(r, W_CTR) += 1u;
-      fold(tr, r);
-    };
-    float e_fire, e_b;
-    {
-      const int b = take();
-      const float tb = b >= 0 ? wf(b, W_TNEXT) : 0.f;
-      draw_pair(s, 0u, b, e_fire, e_b);
-      if (b >= 0) react(b, e_b, tb);
-    }
+    const float e_fire = draw_pair(s, 0u, take());
     while (m != 0u) {
-      const int a = take(), b = take();
-      const float ta = wf(a, W_TNEXT), tb = b >= 0 ? wf(b, W_TNEXT) : 0.f;
-      float e_a;
-      draw_pair(a, 1u, b, e_a, e_b);
-      react(a, e_a, ta);
-      if (b >= 0) react(b, e_b, tb);
+      const int a = take();
+      const float ta = wf(a, W_TNEXT);
+      react(a, draw_pair(a, 1u, take()), ta);
     }
 
     // ---- per-kind resample (Opt and uncompiled kinds stay +inf) ----
