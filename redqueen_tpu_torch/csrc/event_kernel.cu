@@ -338,12 +338,12 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
       m &= m - 1u;
       return r;
     };
-    // Opt row r (clock tr, read before its draw) reacts to s with rs[j][s]
-    // when rs > 0; a row that does not react, s itself among them, drops
-    // its draw.
-    auto react = [&](int r, float e, float tr) {
+    // Opt row r (ordinal j in opt_mask, clock tr, read before its draw)
+    // reacts to s with rs[j][s] when rs > 0; a row that does not react, s
+    // itself among them, drops its draw.
+    auto react = [&](int r, int j, float e, float tr) {
       if (r == s) return;
-      const float rs = wf(s, W_RS + __popc(opt_mask & ((1u << r) - 1u)));
+      const float rs = wf(s, W_RS + j);
       if (rs > 0.f) {
         tr = jmin(tr, tmin + e / jmax(rs, TINY));
         wf(r, W_TNEXT) = tr;
@@ -352,9 +352,9 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
       fold(tr, r);
     };
     // Exp(1) draws of source a on (key; ctr, stream_a) and, when Opt row
-    // b >= 0, of b on (key; ctr, 1), their threefry chains interleaved;
-    // then b's react.
-    auto draw_pair = [&](int a, uint32_t stream_a, int b) -> float {
+    // b >= 0 (ordinal jb), of b on (key; ctr, 1), their threefry chains
+    // interleaved; then b's react.
+    auto draw_pair = [&](int a, uint32_t stream_a, int b, int jb) -> float {
       if (b < 0) {
         const uint32_t k0[1] = {w(a, W_K0)}, k1[1] = {w(a, W_K1)};
         const uint32_t c[1] = {w(a, W_CTR)};
@@ -368,14 +368,14 @@ event_kernel(Params p, Carry in, Carry out, float* __restrict__ times,
       const float tb = wf(b, W_TNEXT);
       float e[2];
       exp_draws<2>(k0, k1, c, stream_a, e);
-      react(b, e[1], tb);
+      react(b, jb, e[1], tb);
       return e[0];
     };
-    const float e_fire = draw_pair(s, 0u, take());
-    while (m != 0u) {
+    const float e_fire = draw_pair(s, 0u, take(), 0);
+    for (int j = 1; m != 0u; j += 2) {
       const int a = take();
       const float ta = wf(a, W_TNEXT);
-      react(a, draw_pair(a, 1u, take()), ta);
+      react(a, j, draw_pair(a, 1u, take(), j + 1), ta);
     }
 
     // ---- per-kind resample (Opt and uncompiled kinds stay +inf) ----
