@@ -32,7 +32,7 @@ from .models.base import (
 __all__ = [
     "SimConfig", "SourceParams", "GraphBuilder", "stack_components",
     "check_piecewise", "ConfigValidationError", "CROSS_EXCITATION_WARN",
-    "PARAM_FIELDS",
+    "PARAM_FIELDS", "SimState", "STATE_FIELDS",
 ]
 
 #: Share of off-diagonal branching mass above which a learned [D, D]
@@ -146,6 +146,45 @@ class SourceParams:
         dev = resolve_device(device)
         return dataclasses.replace(self, **{
             f: getattr(self, f).to(dev) for f in PARAM_FIELDS})
+
+
+#: SimState fields, in declaration order (``budget`` and ``health`` may
+#: be None).
+STATE_FIELDS = ("t", "t_next", "exc", "exc_t", "rd_ptr", "h", "key",
+                "keys", "ctr", "n_events", "budget", "health")
+
+
+@dataclasses.dataclass(frozen=True)
+class SimState:
+    """The scan engine's whole carry, batch-first: what a step needs from
+    the last, and what :func:`redqueen_tpu_torch.sim.resume` needs to go
+    on.  The fields are those of the JAX package's ``SimState``, each with
+    a leading lane axis ``[B]``; keys, counters and health words are
+    uint32 words on the int64 carrier (``ops.threefry``)."""
+
+    t: torch.Tensor         # f32[B]      current time
+    t_next: torch.Tensor    # f32[B,S]    next event per source (+inf = never)
+    exc: torch.Tensor       # f32[B,S]    Hawkes excitation at exc_t
+    exc_t: torch.Tensor     # f32[B,S]    excitation fold time
+    rd_ptr: torch.Tensor    # i32[B,S]    RealData replay cursor
+    h: torch.Tensor         # f32[B,S,H]  RMTPP recurrent state
+    key: torch.Tensor       # [B,2]       component key (the step panel's)
+    keys: torch.Tensor      # [B,S,2]     per-source base keys
+    ctr: torch.Tensor       # [B,S]       per-source draw counters
+    n_events: torch.Tensor  # i32[B]      events emitted so far
+    # Absolute event count at which a lane stops (run_dynamic); None =
+    # run to the horizon.
+    budget: Optional[torch.Tensor] = None   # i32[B]
+    # Numeric-health word (runtime.numerics BIT_*); non-zero freezes the
+    # lane.  None only for states carried in without one.
+    health: Optional[torch.Tensor] = None   # [B]
+
+    def replace(self, **changes) -> "SimState":
+        return dataclasses.replace(self, **changes)
+
+    @property
+    def batch_size(self) -> int:
+        return int(self.t.shape[0])
 
 
 _BENIGN = dict(rate=1.0, l0=1.0, alpha=0.0, beta=1.0, q=1.0)

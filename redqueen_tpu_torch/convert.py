@@ -1,24 +1,27 @@
-"""Carry parameters across from the JAX package.
+"""Carry parameters and carries across from the JAX package.
 
-A JAX ``SourceParams`` read out as numpy arrays (one per field) and a
-JAX ``SimConfig`` read out as its plain fields become the port's
-objects, so both packages can run the very same component.  Nothing
-here imports the JAX package: the caller reads the arrays out, for
-example ``{f: np.asarray(getattr(p, f)) for f in PARAM_FIELDS}`` and
+A JAX ``SourceParams`` or ``SimState`` read out as numpy arrays (one per
+field) and a JAX ``SimConfig`` read out as its plain fields become the
+port's objects, so both packages can run the very same component, and
+the port can resume a run the JAX package began.  Nothing here imports
+the JAX package: the caller reads the arrays out, for example
+``{f: np.asarray(getattr(p, f)) for f in PARAM_FIELDS}`` and
 ``dataclasses.asdict(cfg)``."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-from .config import PARAM_FIELDS, SimConfig, SourceParams
+from .config import PARAM_FIELDS, STATE_FIELDS, SimConfig, SimState, \
+    SourceParams
 from .device import DeviceLike, resolve_device
 
 __all__ = ["source_params_from_numpy", "source_params_to_numpy",
-           "sim_config_from_fields"]
+           "sim_config_from_fields", "sim_state_from_numpy",
+           "sim_state_to_numpy"]
 
 
 def source_params_from_numpy(fields: Mapping[str, np.ndarray],
@@ -65,3 +68,53 @@ def sim_config_from_fields(fields: Mapping[str, Any]) -> SimConfig:
         if f in kw:
             kw[f] = float(kw[f])
     return SimConfig(**kw)
+
+
+# SimState field -> (port dtype, JAX dtype); uint32 words ride on int64.
+_STATE_DTYPES = {
+    "t": (torch.float32, np.float32), "t_next": (torch.float32, np.float32),
+    "exc": (torch.float32, np.float32), "exc_t": (torch.float32, np.float32),
+    "rd_ptr": (torch.int32, np.int32), "h": (torch.float32, np.float32),
+    "key": (torch.int64, np.uint32), "keys": (torch.int64, np.uint32),
+    "ctr": (torch.int64, np.uint32), "n_events": (torch.int32, np.int32),
+    "budget": (torch.int32, np.int32), "health": (torch.int64, np.uint32),
+}
+
+
+def sim_state_from_numpy(fields: Mapping[str, np.ndarray],
+                         device: DeviceLike = "cuda") -> SimState:
+    """``SimState`` on ``device`` from one numpy array per field of a JAX
+    ``SimState`` (``budget``/``health`` may be None or missing).  A single
+    component's state (``t_next`` [S]) gains a lane axis of 1."""
+    dev = resolve_device(device)
+    unknown = [f for f in fields if f not in STATE_FIELDS]
+    missing = [f for f in STATE_FIELDS[:10] if f not in fields]
+    if missing or unknown:
+        raise KeyError(f"SimState fields: missing {missing}, unknown "
+                       f"{unknown}")
+    single = np.ndim(fields["t_next"]) == 1
+    out = {}
+    for f in STATE_FIELDS:
+        a = fields.get(f)
+        if a is None:
+            out[f] = None
+            continue
+        a = np.asarray(a)
+        if single:
+            a = a[None]
+        dt, _ = _STATE_DTYPES[f]
+        out[f] = torch.from_numpy(a.astype(np.int64) if dt == torch.int64
+                                  else np.array(a)).to(dev, dt)
+    return SimState(**out)
+
+
+def sim_state_to_numpy(state: SimState) -> Dict[str, Optional[np.ndarray]]:
+    """One numpy array per ``SimState`` field in the JAX package's dtypes
+    (uint32 keys, counters and health words), None where the state has
+    none (the inverse of :func:`sim_state_from_numpy`)."""
+    out = {}
+    for f in STATE_FIELDS:
+        v = getattr(state, f)
+        out[f] = None if v is None else \
+            v.detach().cpu().numpy().astype(_STATE_DTYPES[f][1])
+    return out

@@ -11,7 +11,7 @@ from typing import Union
 
 import torch
 
-__all__ = ["resolve_device", "DeviceLike"]
+__all__ = ["resolve_device", "DeviceLike", "host_read"]
 
 DeviceLike = Union[str, torch.device]
 
@@ -28,3 +28,10 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r} (want cuda or cpu)")
     return dev
+
+
+def host_read(x: torch.Tensor):
+    """``x``'s value on the host as Python objects (``x.tolist()``): the
+    one place where the scan engine waits for the card, so that every
+    host sync of a run passes through here."""
+    return x.tolist()

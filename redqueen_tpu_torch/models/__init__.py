@@ -1,3 +1,10 @@
-"""Policy kind codes (see :mod:`.base`)."""
+"""Broadcasting policies.  Importing this package registers the built-in
+policy kinds (Poisson, Hawkes, piecewise, RealData, Opt) with the
+registry in :mod:`.base`; RMTPP, the neural policy, is not ported yet."""
 
 from . import base  # noqa: F401
+from . import poisson  # noqa: F401
+from . import hawkes  # noqa: F401
+from . import piecewise  # noqa: F401
+from . import realdata  # noqa: F401
+from . import opt  # noqa: F401

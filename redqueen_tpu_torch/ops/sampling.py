@@ -1,13 +1,146 @@
-"""Samplers the fused engine's initialisation needs (the counterpart of
-the part of ``redqueen_tpu.ops.sampling`` it uses)."""
+"""Point-process samplers, batched over leading axes: the counterpart of
+``redqueen_tpu.ops.sampling`` (its RMTPP samplers wait for the neural
+policy).
+
+Each function takes tensors whose leading axes are lanes (and sources)
+and does, element by element, the JAX function's arithmetic in the same
+order, so equal inputs give equal bits wherever the two libraries' ``exp``
+and ``log1p`` agree (see ``hawkes_next_time`` for where they need not).
+Keyed draws come from the ``jax.random`` mirror :mod:`.prng`.
+
+Hawkes thinning is a ``lax.while_loop`` in the JAX package, and the scan
+engine runs it under ``vmap``: every lane steps until all are done, and a
+finished lane's carry stops moving.  Here it is a masked loop with the
+same rule (``torch.where`` keeps a finished entry's key, time and count),
+which checks on the host whether any entry is still active only once
+every :data:`PROBE_EVERY` proposals: the masked proposals between checks
+change nothing."""
 
 from __future__ import annotations
 
 import torch
 
-from ..runtime.numerics import safe_div
+from .. import device as _device
+from ..runtime.numerics import (
+    DEFAULT_MAX_PROPOSALS,
+    safe_div,
+    safe_exp,
+    safe_log1p,
+)
+from . import prng
 
-__all__ = ["piecewise_next_from_target"]
+__all__ = [
+    "exponential_delta",
+    "exponential_from_uniform",
+    "hawkes_intensity",
+    "hawkes_next_time",
+    "piecewise_next_time",
+    "piecewise_next_from_target",
+    "PROBE_EVERY",
+]
+
+#: Thinning proposals between two host checks of "is any entry active".
+PROBE_EVERY = 4
+
+_INF = float("inf")
+
+
+def _inf_like(x: torch.Tensor) -> torch.Tensor:
+    return torch.full_like(x, _INF)
+
+
+def exponential_delta(key: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
+    """One Exp(rate) inter-arrival per key (``keys [..., 2]``, ``rate
+    [...]``) from ``jax.random.exponential``; +inf where rate <= 0."""
+    e = prng.exponential(key)
+    return torch.where(rate > 0, safe_div(e, rate), _inf_like(e))
+
+
+def exponential_from_uniform(u: torch.Tensor,
+                             rate: torch.Tensor) -> torch.Tensor:
+    """Exp(rate) from a pre-drawn uniform word (the step panel's):
+    ``-safe_log1p(-u) / rate``; +inf where rate <= 0."""
+    e = -safe_log1p(-u)
+    return torch.where(rate > 0, safe_div(e, rate), _inf_like(e))
+
+
+def hawkes_intensity(t, l0, exc, exc_t, beta):
+    """lambda(t) = l0 + exc * exp(-beta (t - exc_t)), with ``safe_exp``
+    so a degenerate exponent stays finite."""
+    return l0 + exc * safe_exp(-beta * (t - exc_t))
+
+
+def hawkes_next_time(key, t_from, l0, alpha, beta, exc, exc_t, t_max,
+                     bound_scale: float = 1.0,
+                     max_proposals: int = DEFAULT_MAX_PROPOSALS,
+                     return_ok: bool = False, active=None):
+    """Next event time after ``t_from`` of an exponential-kernel Hawkes
+    process, by Ogata thinning, for every entry of the broadcast shape of
+    the float arguments (``key`` is ``[..., 2]``).
+
+    Each proposal splits its key in three (the next key, the gap's key and
+    the accept test's key), draws the gap as ``Exp(1) / bound`` and accepts
+    when ``uniform * bound <= intensity``; the new intensity is the next
+    bound (it only decreases between events).  An entry stops when it
+    accepts, passes ``t_max``, has a bound that is not positive, or has
+    made ``max_proposals`` proposals.  ``active`` (bool, broadcasting)
+    marks the entries to sample; the others make no proposal and return
+    +inf (and ok).
+
+    Returns the accepted time, or +inf if none before ``t_max``; with
+    ``return_ok`` also ``ok``, False where the proposal cap was hit or the
+    first bound was NaN.
+
+    One ulp of ``exp`` can flip an accept test whose two sides are within
+    an ulp of each other; the entry then draws a different stream from
+    there on.  torch's and XLA's CPU ``exp`` differ by an ulp on some
+    arguments, so such a near-tie can separate this sampler from the JAX
+    one on the same key: a precision class, not a fault."""
+    if isinstance(bound_scale, (int, float)) and bound_scale < 1.0:
+        raise ValueError(
+            f"bound_scale must be >= 1 (got {bound_scale}): a bound below "
+            f"the true intensity biases the thinning accept test")
+    if not max_proposals >= 1:
+        raise ValueError(f"max_proposals must be >= 1, got {max_proposals}")
+    t_from, l0, alpha, beta, exc, exc_t = torch.broadcast_tensors(
+        *(torch.as_tensor(x, dtype=torch.float32, device=key.device)
+          for x in (t_from, l0, alpha, beta, exc, exc_t)))
+    shape = t_from.shape
+    key = key.expand(shape + (2,))
+    live0 = (torch.ones(shape, dtype=torch.bool, device=key.device)
+             if active is None else torch.as_tensor(active).expand(shape))
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=key.device)
+    lbd0 = hawkes_intensity(t_from, l0, exc, exc_t, beta) * bound_scale
+
+    n = torch.zeros(shape, dtype=torch.int32, device=key.device)
+    t, lbd = t_from, lbd0
+    accepted = torch.zeros(shape, dtype=torch.bool, device=key.device)
+
+    def running():
+        return (live0 & ~accepted & (t <= t_max) & (lbd > 0)
+                & (n < max_proposals))
+
+    while _device.host_read(running().any()):
+        for _ in range(PROBE_EVERY):
+            go = running()
+            keys = prng.split(key, 3)
+            gap_bits = prng.random_bits(keys[..., 1:, :])   # [..., 2]
+            e = -torch.log1p(-prng.uniform_from_bits23(gap_bits[..., 0]))
+            u = prng.uniform_from_bits23(gap_bits[..., 1])
+            t_new = t + safe_div(e, lbd)
+            lbd_new = hawkes_intensity(t_new, l0, exc, exc_t, beta)
+            accept = u * lbd <= lbd_new
+            key = torch.where(go[..., None], keys[..., 0, :], key)
+            t = torch.where(go, t_new, t)
+            accepted = torch.where(go, accept, accepted)
+            lbd = torch.where(go, lbd_new * bound_scale, lbd)
+            n = n + go.to(torch.int32)
+    t_ret = torch.where(live0 & accepted & (t <= t_max), t, _inf_like(t))
+    if not return_ok:
+        return t_ret
+    cap_hit = (~accepted & (t <= t_max) & (lbd > 0) & (n >= max_proposals))
+    ok = ~(live0 & (cap_hit | torch.isnan(lbd0)))
+    return t_ret, ok
 
 
 def piecewise_next_from_target(target, t_from, change_times, rates):
@@ -46,3 +179,19 @@ def piecewise_next_from_target(target, t_from, change_times, rates):
     t_hit = lo_k + torch.where(rate_k > 0, safe_div(remaining, rate_k),
                                torch.full_like(rate_k, float("inf")))
     return torch.where(k < K, t_hit, torch.full_like(t_hit, float("inf")))
+
+
+def piecewise_next_time(key, t_from, change_times, rates):
+    """Next event of an inhomogeneous Poisson process with a
+    piecewise-constant rate after ``t_from`` (``[...]``), by exact
+    inversion of its hazard (``change_times``/``rates`` ``[..., K]``) at an
+    Exp(1) target from ``jax.random.exponential(key)``.
+
+    The result is float32 even where ``t_from`` is not: with rate 1e6 and
+    ``t_from = 49.99999`` it returns ``float32(49.99999)``, a zero gap after
+    rounding, as the JAX sampler does."""
+    target = prng.exponential(key)
+    t_from = torch.as_tensor(t_from, dtype=change_times.dtype,
+                             device=change_times.device)
+    return piecewise_next_from_target(target, t_from[..., None],
+                                      change_times, rates)

@@ -1,6 +1,7 @@
 """Numerics guard for the port: the per-lane health-bit protocol, the
-guarded ``safe_exp`` the samplers use, and deterministic lane poisoning
-for fault injection.
+guarded primitives the samplers use (``safe_exp``, ``safe_log``,
+``safe_log1p``, ``safe_div``, ``nan_to_posinf``), the thinning loop's
+proposal cap, and deterministic lane poisoning for fault injection.
 
 The bit values, messages and semantics are those of
 ``redqueen_tpu.runtime.numerics``: a lane whose health word is non-zero
@@ -17,7 +18,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "safe_exp", "safe_div",
+    "safe_exp", "safe_log", "safe_log1p", "safe_div", "nan_to_posinf",
+    "DEFAULT_MAX_PROPOSALS",
     "BIT_NONFINITE_TIME", "BIT_NONFINITE_STATE",
     "BIT_SAMPLER_FAILURE", "BIT_NONFINITE_RESULT", "HEALTH_BITS",
     "decode_health", "describe_health", "sick_lanes",
@@ -38,6 +40,25 @@ def safe_exp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp(torch.clamp(x, max=_exp_cap(x.dtype)))
 
 
+def safe_log(x: torch.Tensor) -> torch.Tensor:
+    """``log(x)`` with the argument clamped to the smallest positive
+    normal: identical on strictly positive inputs, a large finite negative
+    (never -inf or NaN) for zero, negative or NaN arguments."""
+    tiny = torch.finfo(x.dtype).tiny
+    x = torch.where(torch.isnan(x), torch.full_like(x, tiny), x)
+    return torch.log(torch.clamp(x, min=tiny))
+
+
+def safe_log1p(x: torch.Tensor) -> torch.Tensor:
+    """``log1p(x)`` clamped above -1: identical on every representable
+    argument in (-1, inf) (the floor is the smallest representable value
+    above -1, ``-(1 - eps/2)``, so ``-u`` for ``u = 1 - 2**-24`` passes),
+    a finite negative for x <= -1 and NaN."""
+    floor = -(1.0 - torch.finfo(x.dtype).eps / 2)
+    x = torch.where(torch.isnan(x), torch.full_like(x, floor), x)
+    return torch.log1p(torch.clamp(x, min=floor))
+
+
 def safe_div(num: torch.Tensor, den: torch.Tensor,
              when_zero: float = float("inf")) -> torch.Tensor:
     """``num / den`` with ``when_zero`` where ``den == 0``; the division
@@ -46,6 +67,18 @@ def safe_div(num: torch.Tensor, den: torch.Tensor,
     out = num / torch.where(zero, torch.ones_like(den), den)
     return torch.where(zero, torch.full_like(out, when_zero), out)
 
+
+def nan_to_posinf(x: torch.Tensor) -> torch.Tensor:
+    """NaN -> +inf, the engine's write-back sanitiser: +inf is the legal
+    "never fires" clock, so a poisoned resample absorbs instead of
+    poisoning the argmin (the health word records the substitution)."""
+    return torch.where(torch.isnan(x), torch.full_like(x, float("inf")), x)
+
+
+#: Proposals after which Hawkes thinning gives up, flagged as a sampler
+#: failure: valid parameters accept within a handful, so only degenerate
+#: ones (a NaN or overflowed bound) reach it.
+DEFAULT_MAX_PROPOSALS = 1_000_000
 
 #: A NaN event time was selected, or a policy resample returned NaN.
 BIT_NONFINITE_TIME = 1 << 0
@@ -116,8 +149,10 @@ POISON_MODES = ("nan", "inf")
 
 
 def poison_lane(state, lane: int, mode: str = "nan"):
-    """Plant a deterministic numeric fault in one lane of a batched
-    engine state (a dataclass with ``t_next``/``exc`` tensors [B, S]).
+    """Plant a deterministic numeric fault in one lane of an engine state:
+    a dataclass with ``t_next``/``exc`` tensors, batched ``[B, S]`` (the
+    fused engine's state, ``config.SimState``) or single ``[S]``, where
+    ``lane`` must be 0.
 
     - ``nan``: source 0's scheduled ``t_next`` becomes NaN; the argmin
       selects it and the lane freezes with ``BIT_NONFINITE_TIME``.
@@ -128,10 +163,15 @@ def poison_lane(state, lane: int, mode: str = "nan"):
     if mode not in POISON_MODES:
         raise ValueError(
             f"unknown poison mode {mode!r} (want {'|'.join(POISON_MODES)})")
+    batched = state.t_next.dim() == 2
+    if not batched and lane != 0:
+        raise ValueError(
+            f"unbatched state has exactly one lane, got lane={lane}")
+    idx = (lane, 0) if batched else (0,)
     if mode == "nan":
         t_next = state.t_next.clone()
-        t_next[lane, 0] = float("nan")
+        t_next[idx] = float("nan")
         return dataclasses.replace(state, t_next=t_next)
     exc = state.exc.clone()
-    exc[lane, 0] = float("inf")
+    exc[idx] = float("inf")
     return dataclasses.replace(state, exc=exc)

@@ -2,14 +2,19 @@
 with the kernel's wrapper replaced by its plain PyTorch version (the
 kernel itself runs only on the card), so the mixes build, the faults
 poison the lane they name, the started clocks drive the all-Opt mix, and
-the comparison and its checks run as they do there.
+the comparison and its checks run as they do there.  Phase 6 (the scan
+engine) runs its parts (a)-(e) at B = 8 with ``device="cpu"`` on both
+sides, and its card-against-CPU gate is fed made-up logs.
 
-Tolerance: none; every lane is held bit-identical, as on the card."""
+Tolerance: none; every lane is held bit-identical, as on the card (the
+gate of phase 6 (b) is itself under test: rtol 1e-5, 2% near-ties)."""
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+import redqueen_tpu_torch as rt
 from redqueen_tpu_torch.ops import event_step, kernels
 from redqueen_tpu_torch.ops.threefry import from_bits32
 
@@ -39,3 +44,89 @@ def test_phase4_comparison_runs_on_the_plain_version(plain_wrapper, key):
             assert int((srcs >= 0).sum()) == out["events"]
     assert out["bit_identical"] and out["lanes_differing"] == 0
     assert out["events"] > 0
+
+
+# ---- phase 6, the scan engine, rehearsed on the CPU at a tiny batch ----
+
+SCAN_B = 8
+
+
+@pytest.fixture(scope="module")
+def scan_ctx():
+    """Phase 6 (a) at B = 8 on the CPU: the headline through the scan
+    engine, gated against the fused engine's plain version at the timed
+    seeds of phase 5; returns (result, context for (c)-(e))."""
+    cfg, params, adj, opt, mc = chip_smoke.headline_component(SCAN_B, 100.0,
+                                                              "cpu")
+    fl = rt.simulate_batch(cfg, params, adj, np.arange(SCAN_B) + 10_000,
+                           max_chunks=mc, engine="fused", device="cpu")
+    top = rt.feed_metrics_batch(fl.times, fl.srcs, adj, opt, 100.0) \
+        .mean_time_in_top_k().double().numpy()
+    return chip_smoke.scan_headline("cpu", SCAN_B, 100.0,
+                                    (top.mean(), top.std(), SCAN_B))
+
+
+def test_phase6a_scan_headline(scan_ctx):
+    res, ctx = scan_ctx
+    assert res["launches"]["event_kernel"] == 0
+    assert res["events"] == int(ctx[-1].n_events.sum()) > 0
+    assert res["dispatches"] == ctx[-1].dispatches >= 2
+    assert res["host_syncs"] >= res["dispatches"]
+    assert res["steps"] == ctx[-1].times.shape[1]
+
+
+@pytest.mark.parametrize("key", list(chip_smoke.SCAN_CROSS_B))
+def test_phase6b_same_code_on_two_devices(key):
+    out = chip_smoke.scan_cross(key, SCAN_B, "cpu")
+    assert out["lanes"] == SCAN_B and out["lanes_differing"] == 0
+    assert out["events_card"] == out["events_cpu"] > 0
+
+
+def test_phase6c_resume(scan_ctx):
+    out = chip_smoke.scan_resume(scan_ctx[1], "cpu")
+    assert out["lanes_differing"] == 0 and out["events_resumed"] > 0
+
+
+def test_phase6d_max_events(scan_ctx):
+    out = chip_smoke.scan_max_events(scan_ctx[1], "cpu")
+    assert out["lanes_not_prefix"] == 0
+    assert 0 < out["events"] < int(scan_ctx[1][-1].n_events.sum())
+
+
+def test_phase6e_auto(scan_ctx):
+    out = chip_smoke.scan_auto(scan_ctx[1], "cpu")
+    assert out["headline_engine"] == "scan"   # the kernel runs on the card
+    assert out["bounded_engine"] == "scan"
+    assert "max_events" in out["bounded_reason"]
+
+
+def _fake_log(times, srcs):
+    t = torch.tensor(times, dtype=torch.float32)
+    s = torch.tensor(srcs, dtype=torch.int32)
+    return rt.EventLog(t, s, (s >= 0).sum(1).to(torch.int32), None)
+
+
+def test_phase6b_gate_counts_near_ties_and_fails_on_the_rest():
+    inf = float("inf")
+    cpu = _fake_log([[1.0, 2.0, 3.0]] * 100, [[0, 1, 2]] * 100)
+    near = _fake_log([[1.0, 2.0000048, 3.0]] + [[1.0, 2.0, 3.0]] * 99,
+                     [[0, 2, 1]] + [[0, 1, 2]] * 99)
+    out = chip_smoke.compare_devices("near", near, cpu, 10.0)
+    assert out["near_ties"] == 1 and out["lanes_differing"] == 1
+    edge = _fake_log([[1.0, 2.0, inf]] + [[1.0, 2.0, 3.0]] * 99,
+                     [[0, 1, -1]] + [[0, 1, 2]] * 99)
+    at_end = _fake_log([[1.0, 2.0, 3.0]] * 100, [[0, 1, 2]] * 100)
+    at_end.times[0, 2] = 9.99995
+    assert chip_smoke.compare_devices("edge", edge, at_end, 10.0)[
+        "near_ties"] == 1
+    far = _fake_log([[1.0, 2.5, 3.0]] + [[1.0, 2.0, 3.0]] * 99,
+                    [[0, 2, 1]] + [[0, 1, 2]] * 99)
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_devices("far", far, cpu, 10.0)
+    many = _fake_log([[1.0, 2.0000048, 3.0]] * 3 + [[1.0, 2.0, 3.0]] * 97,
+                     [[0, 2, 1]] * 3 + [[0, 1, 2]] * 97)
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_devices("many", many, cpu, 10.0)
+    drift = _fake_log([[1.0, 2.0001, 3.0]] * 100, [[0, 1, 2]] * 100)
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_devices("drift", drift, cpu, 10.0)

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card, held against their plain PyTorch
-versions on the same inputs.  Every test here needs an NVIDIA card and
-skips with a reason where torch sees none.  The file imports only the
-port (not the JAX package), so it runs where the port runs:
+"""The port on the card: its CUDA kernels held against their plain
+PyTorch versions on the same inputs, and the scan engine's resume.
+Every test here needs an NVIDIA card and skips with a reason where torch
+sees none.  The file imports only the port (not the JAX package), so it
+runs where the port runs:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
@@ -9,6 +10,8 @@ Tolerance: none.  The kernel is built without fast math and without
 fused multiply-adds and does each operation in the plain version's
 order, so ``srcs``, ``n_events``, health words, the whole carry and
 ``times`` are held bit-identical on every lane of every mix."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -222,14 +225,14 @@ def test_health_under_numeric_fault_matches_plain(card, monkeypatch, mode,
 def test_headline_slice_on_card_counts_its_launches(card):
     cfg, params, adj = _batch("headline", 256, card)
     kernels.reset_launch_counts()
-    log = rt.simulate_batch(cfg, params, adj, np.arange(256))
+    log = rt.simulate_batch(cfg, params, adj, np.arange(256), engine="fused")
     assert log.engine == "cuda" and log.times.is_cuda
     assert kernels.LAUNCHES["event_kernel"] == log.dispatches > 0
     top1 = rt.feed_metrics_batch(log.times, log.srcs, adj, 0, 20.0) \
         .mean_time_in_top_k()
     assert torch.isfinite(top1).all()
     cpu = rt.simulate_batch(cfg, params.to("cpu"), adj.cpu(), np.arange(256),
-                            device="cpu")
+                            engine="fused", device="cpu")
     assert cpu.engine == "plain"
     assert torch.equal(cpu.srcs, log.srcs.cpu())
     assert torch.equal(cpu.n_events, log.n_events.cpu())
@@ -246,3 +249,22 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="adj has shape"):
         kernels.launch_event_kernel(prep.spec, bad, prep.carry)
     assert kernels.LAUNCHES["event_kernel"] == 0  # refused, never launched
+
+
+def test_scan_resume_equals_continuous_run_on_card(card):
+    """The scan engine on the card: T = 10 with return_state, then resume
+    to T = 20, gives the continuous T = 20 log bit for bit on every lane
+    (the mix of every non-neural kind, two Opt rows among them)."""
+    cfg, params, adj, mc = chip_smoke.scan_mix_component(64, card)
+    cfg = dataclasses.replace(cfg, end_time=20.0)
+    half = dataclasses.replace(cfg, end_time=10.0)
+    seeds = np.arange(64)
+    cont = rt.simulate_batch(cfg, params, adj, seeds, max_chunks=mc)
+    log1, state = rt.simulate_batch(half, params, adj, seeds, max_chunks=mc,
+                                    return_state=True)
+    log2, _ = rt.resume(cfg, params, adj, state, max_chunks=mc)
+    assert cont.engine == log1.engine == log2.engine == "scan"
+    assert cont.times.is_cuda and state.t_next.is_cuda
+    t, s, n = chip_smoke.joined(log1, log2)
+    assert int(n.sum()) > 64
+    assert chip_smoke.same_prefix("resume", t, s, n, cont) == 0
