@@ -15,6 +15,11 @@ points run on the card unless the caller passes ``device="cpu"``.
     log = simulate_batch(cfg, params, adj, seeds, engine="fused")  # kernel
     m = feed_metrics_batch(log.times, log.srcs, adj, 0, cfg.end_time)
 
+The star engine (``parallel/bigf.py``: one broadcaster against a large
+follower set, no event loop), the bucketed ragged dispatch
+(``parallel/lanes.py``), the BASELINE presets (``presets.py``), sweeps
+(``sweep.py``) and the offline baseline (``baselines.py``) sit on top.
+
 This package imports torch and numpy only; the JAX package
 ``redqueen_tpu`` is its reference and is never imported here."""
 
@@ -26,17 +31,38 @@ from .config import (
     SourceParams,
     stack_components,
 )
+from .baselines import (
+    budget_matched_poisson_rate,
+    offline_rates,
+    offline_schedule,
+    offline_visibility,
+)
 from .convert import (
+    ctrl_params_from_numpy,
     sim_config_from_fields,
     sim_state_from_numpy,
     sim_state_to_numpy,
     source_params_from_numpy,
     source_params_to_numpy,
+    star_config_from_fields,
+    wall_params_from_numpy,
 )
 from .device import resolve_device
-from .parallel.lanes import shape_budget
+from .parallel.bigf import (
+    CtrlParams,
+    StarBuilder,
+    StarConfig,
+    WallParams,
+    broadcast_star,
+    simulate_star,
+    simulate_star_batch,
+    stack_star,
+)
+from .parallel.lanes import plan_buckets, shape_budget, simulate_ragged
+from .presets import PRESETS, build_preset, power_law_graph, run_preset
 from .runtime.numerics import NumericalHealthError
 from .sim import EventLog, resume, select_engine, simulate, simulate_batch
+from .sweep import SweepResult, run_sweep, run_sweep_star
 from .utils.metrics import (
     FeedMetrics,
     feed_metrics,
@@ -52,4 +78,11 @@ __all__ = [
     "shape_budget", "NumericalHealthError", "EventLog", "simulate",
     "simulate_batch", "resume", "select_engine", "FeedMetrics",
     "feed_metrics", "feed_metrics_batch", "num_posts",
+    "star_config_from_fields", "wall_params_from_numpy",
+    "ctrl_params_from_numpy", "StarConfig", "WallParams", "CtrlParams",
+    "StarBuilder", "simulate_star", "simulate_star_batch", "stack_star",
+    "broadcast_star", "plan_buckets", "simulate_ragged", "PRESETS",
+    "build_preset", "run_preset", "power_law_graph", "SweepResult",
+    "run_sweep", "run_sweep_star", "offline_rates", "offline_visibility",
+    "offline_schedule", "budget_matched_poisson_rate",
 ]

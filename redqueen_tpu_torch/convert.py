@@ -1,8 +1,8 @@
 """Carry parameters and carries across from the JAX package.
 
-A JAX ``SourceParams`` or ``SimState`` read out as numpy arrays (one per
-field) and a JAX ``SimConfig`` read out as its plain fields become the
-port's objects, so both packages can run the very same component, and
+A JAX ``SourceParams``, ``SimState``, ``WallParams`` or ``CtrlParams``
+read out as numpy arrays (one per field) and a JAX ``SimConfig`` or
+``StarConfig`` read out as its plain fields become the port's objects, so both packages can run the very same component, and
 the port can resume a run the JAX package began.  Nothing here imports
 the JAX package: the caller reads the arrays out, for example
 ``{f: np.asarray(getattr(p, f)) for f in PARAM_FIELDS}`` and
@@ -21,7 +21,8 @@ from .device import DeviceLike, resolve_device
 
 __all__ = ["source_params_from_numpy", "source_params_to_numpy",
            "sim_config_from_fields", "sim_state_from_numpy",
-           "sim_state_to_numpy"]
+           "sim_state_to_numpy", "star_config_from_fields",
+           "wall_params_from_numpy", "ctrl_params_from_numpy"]
 
 
 def source_params_from_numpy(fields: Mapping[str, np.ndarray],
@@ -118,3 +119,63 @@ def sim_state_to_numpy(state: SimState) -> Dict[str, Optional[np.ndarray]]:
         out[f] = None if v is None else \
             v.detach().cpu().numpy().astype(_STATE_DTYPES[f][1])
     return out
+
+
+def star_config_from_fields(fields: Mapping[str, Any]):
+    """``StarConfig`` from the JAX ``StarConfig``'s plain fields (e.g.
+    ``dataclasses.asdict``); unknown fields raise ``TypeError``."""
+    from .parallel.star_types import StarConfig
+
+    kw = dict(fields)
+    if "wall_kinds" in kw:
+        kw["wall_kinds"] = tuple(int(x) for x in kw["wall_kinds"])
+    for f in ("n_feeds", "walls_per_feed", "wall_cap", "post_cap",
+              "ctrl_kind", "rmtpp_hidden"):
+        if f in kw:
+            kw[f] = int(kw[f])
+    for f in ("end_time", "start_time"):
+        if f in kw:
+            kw[f] = float(kw[f])
+    return StarConfig(**kw)
+
+
+def wall_params_from_numpy(fields: Mapping[str, np.ndarray],
+                           device: DeviceLike = "cuda"):
+    """``WallParams`` on ``device`` from one numpy array per field of a
+    JAX ``WallParams`` (``kind`` int32, the rest float32)."""
+    from .parallel.star_types import WALL_FIELDS, WallParams
+
+    dev = resolve_device(device)
+    missing = [f for f in WALL_FIELDS if f not in fields]
+    extra = [f for f in fields if f not in WALL_FIELDS]
+    if missing or extra:
+        raise KeyError(f"WallParams fields: missing {missing}, unknown "
+                       f"{extra}")
+    return WallParams(**{
+        f: torch.from_numpy(np.array(fields[f])).to(
+            dev, torch.int32 if f == "kind" else torch.float32)
+        for f in WALL_FIELDS})
+
+
+def ctrl_params_from_numpy(fields: Mapping[str, Optional[np.ndarray]],
+                           device: DeviceLike = "cuda"):
+    """``CtrlParams`` on ``device`` from one numpy array (or None) per
+    field of a JAX ``CtrlParams``; RMTPP weights do not carry across
+    yet."""
+    from .parallel.star_types import CTRL_FIELDS, CtrlParams
+
+    dev = resolve_device(device)
+    known = CTRL_FIELDS + ("l0", "alpha", "beta", "rmtpp")
+    missing = [f for f in CTRL_FIELDS if f not in fields]
+    extra = [f for f in fields if f not in known]
+    if missing or extra:
+        raise KeyError(f"CtrlParams fields: missing {missing}, unknown "
+                       f"{extra}")
+    if fields.get("rmtpp") is not None:
+        raise NotImplementedError(
+            "RMTPP weights do not carry across yet (ROADMAP.md Queue 1 "
+            "item 5, the neural policy)")
+    return CtrlParams(**{
+        f: None if fields.get(f) is None else
+        torch.from_numpy(np.array(fields[f])).to(dev, torch.float32)
+        for f in known if f != "rmtpp"})

@@ -13,7 +13,9 @@ from jax 0.5 on.  A key is two uint32 words ``(k0, k1)`` and
 - ``PRNGKey(seed)`` is ``(0, seed mod 2**32)``;
 - ``fold_in(key, d)`` is ``threefry(key; 0, d)``;
 - ``split(key, n)[i]`` is ``threefry(key; 0, i)``;
-- a scalar 32-bit draw is ``w0 ^ w1`` of ``threefry(key; 0, 0)``;
+- a scalar 32-bit draw is ``w0 ^ w1`` of ``threefry(key; 0, 0)``, and
+  element ``i`` of a draw of shape ``shape`` (flat, row-major index ``i``)
+  is ``w0 ^ w1`` of ``threefry(key; 0, i)``;
 - ``uniform`` keeps the draw's top 23 bits as the mantissa of a float in
   [1, 2) and subtracts 1 (not the panel's 24-bit
   :func:`.threefry.uniform_from_bits`), and ``exponential`` is
@@ -24,6 +26,9 @@ mirrored.  Keys are tensors ``[..., 2]`` of uint32 words on the int64
 carrier of :mod:`.threefry`; every function maps over the leading axes."""
 
 from __future__ import annotations
+
+import math
+from typing import Tuple
 
 import torch
 
@@ -44,7 +49,8 @@ def PRNGKey(seed) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: keys ``[..., 2]`` and uint32 data
-    broadcasting against ``[...]`` -> keys ``[..., 2]``."""
+    broadcasting against ``[...]`` (a vector of data folds one key into
+    many) -> keys ``[..., 2]``."""
     w0, w1 = threefry2x32(key[..., 0], key[..., 1], 0, data)
     return torch.stack([w0, w1], -1)
 
@@ -56,10 +62,20 @@ def split(key: torch.Tensor, num: int) -> torch.Tensor:
     return torch.stack([w0, w1], -1)
 
 
-def random_bits(key: torch.Tensor) -> torch.Tensor:
-    """One 32-bit word per key (``jax.random.bits`` of shape ``()``)."""
-    w0, w1 = threefry2x32(key[..., 0], key[..., 1], 0, 0)
-    return w0 ^ w1
+def random_bits(key: torch.Tensor, shape: Tuple[int, ...] = ()
+                ) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` per key: keys ``[..., 2]`` ->
+    uint32 words ``[..., *shape]`` (one word per key for ``shape=()``)."""
+    shape = tuple(int(d) for d in shape)
+    n = math.prod(shape)
+    if n >= 2**32:
+        raise ValueError(f"draw of {n} words exceeds the 32-bit counter")
+    if not shape:
+        w0, w1 = threefry2x32(key[..., 0], key[..., 1], 0, 0)
+        return w0 ^ w1
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    w0, w1 = threefry2x32(key[..., 0, None], key[..., 1, None], 0, idx)
+    return (w0 ^ w1).reshape(key.shape[:-1] + shape)
 
 
 def uniform_from_bits23(bits: torch.Tensor) -> torch.Tensor:
@@ -69,11 +85,14 @@ def uniform_from_bits23(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
-def uniform(key: torch.Tensor) -> torch.Tensor:
-    """``jax.random.uniform(key)`` in float32, one draw per key."""
-    return uniform_from_bits23(random_bits(key))
+def uniform(key: torch.Tensor, shape: Tuple[int, ...] = ()) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in float32 per key ->
+    ``[..., *shape]``."""
+    return uniform_from_bits23(random_bits(key, shape))
 
 
-def exponential(key: torch.Tensor) -> torch.Tensor:
-    """``jax.random.exponential(key)`` in float32: ``-log1p(-u)``."""
-    return -torch.log1p(-uniform(key))
+def exponential(key: torch.Tensor,
+                shape: Tuple[int, ...] = ()) -> torch.Tensor:
+    """``jax.random.exponential(key, shape)`` in float32 per key:
+    ``-log1p(-u)``."""
+    return -torch.log1p(-uniform(key, shape))

@@ -34,6 +34,7 @@ __all__ = [
     "exponential_from_uniform",
     "hawkes_intensity",
     "hawkes_next_time",
+    "thinning_proposal",
     "piecewise_next_time",
     "piecewise_next_from_target",
     "PROBE_EVERY",
@@ -68,6 +69,21 @@ def hawkes_intensity(t, l0, exc, exc_t, beta):
     """lambda(t) = l0 + exc * exp(-beta (t - exc_t)), with ``safe_exp``
     so a degenerate exponent stays finite."""
     return l0 + exc * safe_exp(-beta * (t - exc_t))
+
+
+def thinning_proposal(key, t, lbd, l0, exc, exc_t, beta):
+    """One Ogata thinning proposal from the bound ``lbd`` at ``t``: the
+    key splits in three (the next key, the gap's key, the accept test's
+    key), the gap is Exp(1) / lbd and the proposal is accepted when
+    uniform * lbd <= the intensity there.  Returns ``(next key, proposed
+    time, intensity there, accepted)``."""
+    keys = prng.split(key, 3)
+    gap_bits = prng.random_bits(keys[..., 1:, :])   # [..., 2]
+    e = -torch.log1p(-prng.uniform_from_bits23(gap_bits[..., 0]))
+    u = prng.uniform_from_bits23(gap_bits[..., 1])
+    t_new = t + safe_div(e, lbd)
+    lbd_new = hawkes_intensity(t_new, l0, exc, exc_t, beta)
+    return keys[..., 0, :], t_new, lbd_new, u * lbd <= lbd_new
 
 
 def hawkes_next_time(key, t_from, l0, alpha, beta, exc, exc_t, t_max,
@@ -123,14 +139,9 @@ def hawkes_next_time(key, t_from, l0, alpha, beta, exc, exc_t, t_max,
     while _device.host_read(running().any()):
         for _ in range(PROBE_EVERY):
             go = running()
-            keys = prng.split(key, 3)
-            gap_bits = prng.random_bits(keys[..., 1:, :])   # [..., 2]
-            e = -torch.log1p(-prng.uniform_from_bits23(gap_bits[..., 0]))
-            u = prng.uniform_from_bits23(gap_bits[..., 1])
-            t_new = t + safe_div(e, lbd)
-            lbd_new = hawkes_intensity(t_new, l0, exc, exc_t, beta)
-            accept = u * lbd <= lbd_new
-            key = torch.where(go[..., None], keys[..., 0, :], key)
+            key_new, t_new, lbd_new, accept = thinning_proposal(
+                key, t, lbd, l0, exc, exc_t, beta)
+            key = torch.where(go[..., None], key_new, key)
             t = torch.where(go, t_new, t)
             accepted = torch.where(go, accept, accepted)
             lbd = torch.where(go, lbd_new * bound_scale, lbd)

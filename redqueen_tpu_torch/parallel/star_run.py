@@ -1,0 +1,252 @@
+"""Star-engine execution: the kernel (streams -> fires -> metrics), its
+cache, the overflow checks with the compressed -> uncompressed retry,
+and the entry points ``simulate_star``/``simulate_star_batch`` — the
+counterpart of ``redqueen_tpu.parallel.star_run``.
+
+The kernel is written batched over lanes ``[B]`` (the JAX engine's
+``vmap`` of its one-component kernel); ``simulate_star`` runs it on one
+lane.  There is no mesh yet: the JAX kernel's collectives over the
+``feed`` axis (``pany``, ``pmin``, ``axis_present``) are identities
+without one, and a ``mesh=`` raises."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..models.base import KIND_OPT
+from ..ops import prng
+from ..sim import _as_keys
+from ..utils.metrics import FeedMetrics
+from .star_fire import _check_fire_mode, _opt_fires, _resolve_fire_mode
+from .star_metrics import _feed_metrics_star
+from .star_streams import _check_wall_kinds, _ctrl_stream, _wall_streams
+from .star_types import (
+    CtrlParams,
+    RecordBudgetOverflow,
+    StarBatchResult,
+    StarConfig,
+    StarResult,
+    WallParams,
+)
+
+__all__ = ["simulate_star", "simulate_star_batch", "stack_star",
+           "broadcast_star"]
+
+_MESH_ITEM = "ROADMAP.md Queue 1 item 6 (mesh -> torch.distributed)"
+
+
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            f"follower- and batch-sharded star runs (mesh=) are not ported "
+            f"yet — {_MESH_ITEM}")
+
+
+def _make_kernel(cfg: StarConfig, metric_K: int, compress: bool = True,
+                 fire_mode: str = "auto"):
+    """The star kernel for ``[B]`` lanes: ``kernel(wall, ctrl, keys) ->
+    (own, n_posts, feed_times, wall_n, metrics, wall_trunc, post_trunc,
+    rec_trunc)``, every output with a leading ``[B]``."""
+
+    def kernel(wall: WallParams, ctrl: CtrlParams, keys: torch.Tensor):
+        B, Fl, M = wall.kind.shape
+        dev = keys.device
+        key_wall = prng.fold_in(keys, 101)
+        key_tau = prng.fold_in(keys, 202)
+        key_own = prng.fold_in(keys, 303)
+
+        # 1) independent wall streams, one key per global slot f*M + m.
+        slot = torch.arange(Fl * M, device=dev).reshape(Fl, M)
+        slot_keys = prng.fold_in(key_wall[:, None, None, :], slot[None])
+        st = _wall_streams(cfg, wall, slot_keys)
+        feed_times = torch.sort(st.times.reshape(B, Fl, -1), dim=-1).values
+        wall_n = st.n.sum(-1).to(torch.int32)
+        wall_trunc = st.truncated.reshape(B, -1).any(-1)
+
+        # 2) the controlled broadcaster's posting times.
+        if cfg.ctrl_kind == KIND_OPT:
+            rate_f = torch.sqrt(wall.s_sink / torch.clamp(
+                ctrl.q, min=1e-30)[:, None])
+            own, post_trunc, rec_trunc = _opt_fires(
+                cfg, feed_times, rate_f.to(feed_times.dtype), key_tau, 0,
+                compress=compress, fire_mode=fire_mode)
+        else:
+            s = _ctrl_stream(cfg, ctrl, key_own)
+            own, post_trunc = s.times, s.truncated
+            rec_trunc = torch.zeros(B, dtype=torch.bool, device=dev)
+        n_posts = torch.isfinite(own).sum(-1).to(torch.int32)
+
+        # 3) per-feed metrics and the flags.
+        metrics = _feed_metrics_star(cfg, feed_times, own, metric_K)
+        return (own, n_posts, feed_times, wall_n, metrics, wall_trunc,
+                post_trunc, rec_trunc)
+
+    return kernel
+
+
+_FN_CACHE: dict = {}
+
+
+def _get_fn(cfg: StarConfig, metric_K: int, compress: bool, fire_mode: str,
+            device: torch.device):
+    """The kernel cache, keyed on everything the kernel closes over, with
+    ``"auto"`` resolved for the device first."""
+    fire_mode = _resolve_fire_mode(fire_mode, device=device)
+    key = (cfg, metric_K, compress, fire_mode)
+    fn = _FN_CACHE.get(key)
+    if fn is None:
+        fn = _FN_CACHE[key] = _make_kernel(cfg, metric_K, compress,
+                                           fire_mode)
+    return fn
+
+
+# Configs whose candidates overflowed the record budget once skip straight
+# to the uncompressed path for the rest of the process.
+_COMPRESS_BLOCKLIST: set = set()
+
+
+def _regime_key(ctrl: CtrlParams, wall: WallParams):
+    """Coarse clock-regime signature for the blocklist: the mean clock
+    rate sqrt(s_sink / q) to 3 significant figures."""
+    q = ctrl.q.double()
+    s = wall.s_sink.double()
+    if q.numel() == 0 or s.numel() == 0:
+        return None
+    m = float(torch.sqrt(s.mean() / torch.clamp(q.mean(), min=1e-30)))
+    return float(f"{m:.3g}") if np.isfinite(m) else None
+
+
+def _run_with_fallback(cfg: StarConfig, metric_K: int, ctrl: CtrlParams,
+                       wall: WallParams, run):
+    """Run compressed first, then uncompressed on ``RecordBudgetOverflow``
+    (and remember the regime).  ``run(compress) -> kernel outputs``."""
+    key = (cfg, metric_K, _regime_key(ctrl, wall))
+    if key not in _COMPRESS_BLOCKLIST:
+        try:
+            out = run(True)
+            _check_overflow(cfg, out[5], out[6], out[7])
+            return out
+        except RecordBudgetOverflow:
+            _COMPRESS_BLOCKLIST.add(key)
+    out = run(False)
+    _check_overflow(cfg, out[5], out[6])
+    return out
+
+
+def _check_overflow(cfg: StarConfig, wall_trunc, post_trunc, rec_trunc=None):
+    """Raise, never truncate, when a lane's buffers filled.  ``rec_trunc``
+    first: a record-budget overflow corrupts the compressed path's last
+    slot and can fill the post buffer spuriously.  One host read."""
+    flags = [wall_trunc, post_trunc] + ([rec_trunc] if rec_trunc is not None
+                                        else [])
+    counts = torch.stack([f.reshape(-1).sum() for f in flags]).tolist()
+    n_wall, n_post = counts[0], counts[1]
+    if rec_trunc is not None and counts[2]:
+        raise RecordBudgetOverflow(
+            "suffix-record budget overflow (a feed produced more "
+            "right-to-left candidate minima than star_fire._rec_cap "
+            "allows — the short-clock regime); retrying with compression "
+            "off")
+    if n_wall:
+        raise RuntimeError(
+            f"wall stream overflow ({n_wall} lane(s) hit wall_cap="
+            f"{cfg.wall_cap} before the horizon) — raise StarConfig.wall_cap "
+            f"(refusing to truncate silently)")
+    if n_post:
+        raise RuntimeError(
+            f"posting buffer overflow ({n_post} lane(s) hit post_cap="
+            f"{cfg.post_cap} before the horizon) — raise StarConfig.post_cap "
+            f"(refusing to truncate silently)")
+
+
+def simulate_star(cfg: StarConfig, wall: WallParams, ctrl: CtrlParams,
+                  seed, mesh=None, metric_K: int = 1,
+                  fire_mode: str = "auto",
+                  device: DeviceLike = "cuda") -> StarResult:
+    """Simulate one star component to its horizon on ``device`` (the card
+    by default).  ``seed`` is an integer or a key [2].  Raises on a
+    wall-buffer or post-buffer overflow instead of truncating.
+
+    ``fire_mode``: ``"loop"``, ``"doubling"`` or ``"auto"`` (doubling on
+    the card, the loop on the CPU); the fires are the same bit for bit."""
+    _no_mesh(mesh)
+    dev = resolve_device(device)
+    _check_fire_mode(fire_mode)
+    _check_wall_kinds(cfg, wall)
+    wall_b = wall.to(dev).map(lambda x: x[None])
+    ctrl_b = ctrl.to(dev).map(lambda x: x[None])
+    seed = np.asarray(seed.detach().cpu() if isinstance(seed, torch.Tensor)
+                      else seed)
+    keys = _as_keys(seed[None], dev)
+
+    def run(compress):
+        return _get_fn(cfg, metric_K, compress, fire_mode, dev)(
+            wall_b, ctrl_b, keys)
+
+    own, n_posts, feed_times, wall_n, metrics, *_ = _run_with_fallback(
+        cfg, metric_K, ctrl_b, wall_b, run)
+    return StarResult(
+        own_times=own[0], n_posts=int(n_posts[0]), wall_times=feed_times[0],
+        wall_n=wall_n[0], metrics=FeedMetrics(*(x[0] for x in metrics)),
+        cfg=cfg)
+
+
+def stack_star(wall_list: Sequence[WallParams],
+               ctrl_list: Sequence[CtrlParams]):
+    """Stack same-shape star components along a leading batch axis; the
+    parameters may differ, the shapes and the controlled kind may not."""
+    w0, c0 = wall_list[0], ctrl_list[0]
+    wall = WallParams(**{f: torch.stack([getattr(w, f) for w in wall_list])
+                         for f in w0.__dataclass_fields__})
+    ctrl = CtrlParams(**{
+        f: (torch.stack([getattr(c, f) for c in ctrl_list])
+            if isinstance(getattr(c0, f), torch.Tensor) else getattr(c0, f))
+        for f in c0.__dataclass_fields__})
+    return wall, ctrl
+
+
+def broadcast_star(wall: WallParams, ctrl: CtrlParams, B: int):
+    """Tile ONE component to a [B]-lane batch without copies (lanes differ
+    only by seed)."""
+    return (wall.map(lambda x: x.expand((B,) + tuple(x.shape))),
+            ctrl.map(lambda x: x.expand((B,) + tuple(x.shape))))
+
+
+def simulate_star_batch(cfg: StarConfig, wall: WallParams, ctrl: CtrlParams,
+                        seeds, mesh=None, metric_K: int = 1,
+                        fire_mode: str = "auto",
+                        device: DeviceLike = "cuda") -> StarBatchResult:
+    """Run B star components in lockstep on ``device`` (the card by
+    default): ``wall``/``ctrl`` leaves carry a leading [B] (see
+    :func:`stack_star` / :func:`broadcast_star`), ``seeds`` is an integer
+    array [B] or a key array [B, 2].  Every lane's result equals its
+    :func:`simulate_star` at the same seed.  Raises on any lane's buffer
+    overflow, never truncates."""
+    _no_mesh(mesh)
+    dev = resolve_device(device)
+    keys = _as_keys(seeds, dev)
+    B = keys.shape[0]
+    if wall.kind.shape[0] != B:
+        raise ValueError(
+            f"batch dims disagree: seeds={B}, wall={wall.kind.shape[0]}")
+    if ctrl.q.dim() != 1 or ctrl.q.shape[0] != B:
+        raise ValueError(
+            f"batch dims disagree: seeds={B}, ctrl="
+            f"{ctrl.q.shape[0] if ctrl.q.dim() else 'unbatched'} — build the "
+            f"batch with stack_star/broadcast_star")
+    _check_fire_mode(fire_mode)
+    _check_wall_kinds(cfg, wall)
+    wall, ctrl = wall.to(dev), ctrl.to(dev)
+
+    def run(compress):
+        return _get_fn(cfg, metric_K, compress, fire_mode, dev)(
+            wall, ctrl, keys)
+
+    own, n_posts, _ft, wall_n, metrics, *_ = _run_with_fallback(
+        cfg, metric_K, ctrl, wall, run)
+    return StarBatchResult(own_times=own, n_posts=n_posts, wall_n=wall_n,
+                           metrics=metrics, cfg=cfg)

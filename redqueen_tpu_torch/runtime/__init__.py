@@ -1,3 +1,4 @@
-"""Runtime support of the port: numerics guard and fault injection."""
+"""Runtime support of the port: numerics guard, fault injection,
+telemetry and crash-consistent artifacts."""
 
-from . import faultinject, numerics  # noqa: F401
+from . import artifacts, faultinject, numerics, telemetry  # noqa: F401

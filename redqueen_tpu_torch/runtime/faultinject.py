@@ -4,19 +4,23 @@ poisons lane N of the next dispatch (``runtime.numerics.poison_lane``),
 so the health paths of both packages can be driven on the same lane.
 
 Only the numeric kind is read here; a spec of any other kind leaves the
-port's engines alone.  The ``,chunkM`` qualifier addresses a sweep chunk,
-and the port has no sweep layer yet, so a chunk-qualified spec never
-fires in it."""
+port's engines alone.  A dispatch layer that reorders or slices lanes
+(``parallel.lanes.simulate_ragged``) runs each dispatch inside
+:func:`numeric_scope`, whose ``lane_base`` translates the spec's lane
+index into the dispatch's own lanes; a ``,chunkM`` qualifier fires only
+inside a scope of that chunk."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import NamedTuple, Optional, Tuple
 
 from .numerics import POISON_MODES
 
 __all__ = ["ENV_FAULT", "NUMERIC_MODES", "NumericFault", "parse_numeric",
-           "numeric_fault", "active_numeric_lane"]
+           "numeric_fault", "numeric_scope", "numeric_scope_ctx",
+           "active_numeric_lane"]
 
 ENV_FAULT = "RQ_FAULT"
 NUMERIC_MODES = POISON_MODES
@@ -75,12 +79,42 @@ def numeric_fault() -> Optional[NumericFault]:
     return parse_numeric(arg)
 
 
+# (chunk, lane_base) of the dispatch that is running: see numeric_scope.
+_NUMERIC_CTX: Tuple[Optional[int], int] = (None, 0)
+
+
+@contextlib.contextmanager
+def numeric_scope(chunk: Optional[int] = None, lane_base: int = 0):
+    """Declare the fault-addressing context of the dispatches run inside
+    the ``with`` body: the sweep chunk, and the spec lane index that maps
+    to lane 0 of the dispatch."""
+    global _NUMERIC_CTX
+    prev = _NUMERIC_CTX
+    _NUMERIC_CTX = (chunk, int(lane_base))
+    try:
+        yield
+    finally:
+        _NUMERIC_CTX = prev
+
+
+def numeric_scope_ctx() -> Tuple[Optional[int], int]:
+    """The ``(chunk, lane_base)`` context in effect, so that a layer that
+    nests its own scopes keeps the chunk it runs in."""
+    return _NUMERIC_CTX
+
+
 def active_numeric_lane(batch_size: int) -> Optional[Tuple[int, str]]:
-    """``(lane, mode)`` if the env-configured numeric fault lands in a
-    dispatch of ``batch_size`` lanes, else None."""
+    """``(local lane, mode)`` if the env-configured numeric fault lands in
+    a dispatch of ``batch_size`` lanes, else None.  A ``chunkM`` spec
+    fires only inside a :func:`numeric_scope` of chunk M; the spec's lane
+    index is taken relative to the scope's ``lane_base``."""
     nf = numeric_fault()
-    if nf is None or nf.chunk is not None:
+    if nf is None:
         return None
-    if 0 <= nf.lane < batch_size:
-        return nf.lane, nf.mode
+    chunk, lane_base = _NUMERIC_CTX
+    if nf.chunk is not None and nf.chunk != chunk:
+        return None
+    local = nf.lane - lane_base
+    if 0 <= local < batch_size:
+        return local, nf.mode
     return None

@@ -50,7 +50,6 @@ __all__ = ["EventLog", "simulate", "simulate_batch", "resume",
 ENGINES = ("scan", "fused", "auto")
 
 _RMTPP_ITEM = "ROADMAP.md Queue 1 item 5 (neural policy)"
-_SLAB_ITEM = "ROADMAP.md Queue 1 item 3 (lanes, sweeps)"
 
 
 class EventLog:
@@ -341,11 +340,22 @@ def simulate_batch(cfg: SimConfig, params: SourceParams, adj, seeds,
     where the run happens, the card by default; the inputs are moved
     there.  ``sync_every`` is the chunks per host sync (per kernel launch
     on the fused engine) and ``max_chunks`` the allowance of
-    ``cfg.capacity``-event chunks before the run raises."""
+    ``cfg.capacity``-event chunks before the run raises.  ``slab``
+    dispatches the batch in consecutive ``slab``-lane pieces with
+    bit-identical per-lane results (``parallel.lanes.simulate_slabbed``;
+    the log gains ``chunk_steps``); it has no ``return_state``."""
     dev = resolve_device(device)
-    if slab is not None:
-        raise NotImplementedError(
-            f"slab dispatch is not ported yet — {_SLAB_ITEM}")
+    if slab is not None and slab < np.shape(seeds)[0]:
+        if return_state:
+            raise ValueError(
+                "slab dispatch has no SimState handoff (per-slab carries "
+                "cannot merge) — return_state is an unslabbed contract")
+        from .parallel.lanes import simulate_slabbed
+
+        return simulate_slabbed(
+            cfg, params, adj, seeds, slab, max_chunks=max_chunks,
+            sync_every=sync_every, max_events=max_events, engine=engine,
+            device=dev)
     name, reason = select_engine(
         cfg, params, engine=engine, max_events=max_events,
         return_state=return_state, key_seeds=_is_key_array(seeds),

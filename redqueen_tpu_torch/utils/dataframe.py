@@ -15,7 +15,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-__all__ = ["events_to_dataframe"]
+__all__ = ["events_to_dataframe", "star_events_to_dataframe"]
 
 
 def _host(x, dtype) -> np.ndarray:
@@ -77,3 +77,29 @@ def events_to_dataframe(times, srcs, adj, src_ids=None,
             "sink_id": sink_ids[sink_idx],
         }
     )
+
+
+def star_events_to_dataframe(res, src_id=0,
+                             wall_src_offset: int = 100) -> pd.DataFrame:
+    """A star run (``parallel.star_types.StarResult``) in the same schema,
+    for small-F validation: wall source ids are ``wall_src_offset + feed``;
+    own posts land in every feed and go first at equal times."""
+    F = res.cfg.n_feeds
+    own_all = _host(res.own_times, np.float64)
+    own = own_all[np.isfinite(own_all)]
+    walls = _host(res.wall_times, np.float64)
+    wall_n = _host(res.wall_n, np.int64)
+    rows = [(float(t), 0, src_id, None) for t in own]
+    for f in range(F):
+        for t in walls[f][:int(wall_n[f])]:
+            rows.append((float(t), 1, wall_src_offset + f, f))
+    rows.sort(key=lambda r: (r[0], r[1]))
+    recs = []
+    last = {}
+    for eid, (t, _, src, sink) in enumerate(rows):
+        delta = t - last.get(src, res.cfg.start_time)
+        last[src] = t
+        for sk in (range(F) if sink is None else [sink]):
+            recs.append((eid, t, delta, src, sk))
+    return pd.DataFrame(
+        recs, columns=["event_id", "t", "time_delta", "src_id", "sink_id"])

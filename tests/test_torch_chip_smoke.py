@@ -22,6 +22,12 @@ KEYS = list(chip_smoke.PARITY_MIXES) + [
     f"s32_poisoned_{m}" for m in chip_smoke.POISON_MODES]
 
 
+@pytest.fixture(autouse=True)
+def autotune_cache(tmp_path, monkeypatch):
+    """The lane layer's autotune cache in the test's own directory."""
+    monkeypatch.setenv("RQ_LANES_AUTOTUNE", str(tmp_path / "autotune.json"))
+
+
 @pytest.fixture
 def plain_wrapper(monkeypatch):
     monkeypatch.setattr(kernels, "launch_event_kernel", event_step.run_launch)
@@ -130,3 +136,86 @@ def test_phase6b_gate_counts_near_ties_and_fails_on_the_rest():
     drift = _fake_log([[1.0, 2.0001, 3.0]] * 100, [[0, 1, 2]] * 100)
     with pytest.raises(SystemExit):
         chip_smoke.compare_devices("drift", drift, cpu, 10.0)
+
+
+# ---- phase 7, the presets and the star engine, rehearsed on the CPU ----
+
+SMALL_FULL = {
+    1: dict(scale=1.0, end_time=8.0, capacity=128),
+    2: dict(scale=0.01, end_time=20.0, wall_cap=128, post_cap=512),
+    3: dict(scale=0.004, end_time=8.0, capacity=128),
+    4: dict(scale=0.0002, end_time=20.0, q=2.0, post_cap=512),
+}
+
+
+def test_phase7ab_config3_lanes_equal_config1(monkeypatch):
+    monkeypatch.setitem(chip_smoke.PRESET_SEEDS, 1, np.arange(6))
+    # the fused mean: config 1's own scan lanes, so the 4-sigma gate holds
+    out = rt.run_preset(rt.build_preset(1, device="cpu", **SMALL_FULL[1]),
+                        np.arange(6), device="cpu")
+    top = np.asarray(out["per_seed_top_k"])
+    res = chip_smoke.preset_batch("cpu", (top.mean(), top.std(), 6),
+                                  full=SMALL_FULL)
+    assert res["config3"]["lanes"] == 4
+    assert res["config3"]["lanes_differing_from_config1"] == 0
+    assert res["config1"]["seeds"] == 6 and res["config1"]["events"] > 0
+
+
+def test_phase7a_gate_fails_far_from_the_fused_mean(monkeypatch):
+    monkeypatch.setitem(chip_smoke.PRESET_SEEDS, 1, np.arange(4))
+    with pytest.raises(SystemExit):
+        chip_smoke.preset_batch("cpu", (0.5, 0.01, 1000), full=SMALL_FULL)
+
+
+@pytest.mark.parametrize("which", [2, 4])
+def test_phase7c_star_cross_on_one_device(which):
+    out = chip_smoke.star_cross(which, SMALL_FULL[which], "cpu")
+    assert out["feeds_differing"] == 0 and out["max_rel_post"] == 0.0
+    assert out["lanes_compared"] == len(chip_smoke.STAR_CROSS_SEEDS)
+
+
+def test_phase7c_gate_counts_diverged_feeds():
+    class R:
+        def __init__(self, walls):
+            self.wall_times = torch.tensor(walls, dtype=torch.float32)
+            self.wall_n = torch.isfinite(self.wall_times).sum(1)
+
+    inf = float("inf")
+    cpu = R([[1.0, 2.0, inf], [0.5, inf, inf]])
+    same = R([[1.0, 2.0000005, inf], [0.5, inf, inf]])
+    assert not chip_smoke.star_feed_divergence(same, cpu).any()
+    moved = R([[1.0, 2.5, inf], [0.5, inf, inf]])
+    assert chip_smoke.star_feed_divergence(moved, cpu).tolist() == \
+        [True, False]
+    longer = R([[1.0, 2.0, inf], [0.5, 0.7, inf]])
+    assert chip_smoke.star_feed_divergence(longer, cpu).tolist() == \
+        [False, True]
+
+
+def test_phase7d_config2_hawkes_gate():
+    res = chip_smoke.star_config2("cpu", kw=SMALL_FULL[2],
+                                  seeds=np.arange(2))
+    assert set(res["stages_s"]) == {"streams", "fires", "metrics"}
+    assert res["stages_s"]["streams"] > 0 and res["stages_s"]["fires"] > 0
+    assert abs(res["wall_mean"] - res["wall_closed_form"]) < res["wall_4se"]
+    # the closed form: stationary mean less the start-up transient
+    assert chip_smoke.hawkes_mean_count(0.5, 0.8, 2.0, 100.0) == \
+        pytest.approx(83.333333 - 0.277778, abs=1e-5)
+
+
+def test_phase7e_config4_modes_bit_identical():
+    res = chip_smoke.star_config4("cpu", kw=SMALL_FULL[4],
+                                  seeds=np.arange(2))
+    assert res["modes_identical"] == 4 and res["seed0_posts"] > 0
+    assert res["stages_s"]["fires"] > 0
+
+
+def test_phase7fg_power_law_routes():
+    res = chip_smoke.power_law(
+        "cpu", fused_kw=dict(B=24, max_followers=16, end_time=3.0),
+        scan_kw=dict(B=12, max_followers=40, end_time=0.5))
+    assert res["fused"]["engine"] == "plain"
+    assert res["fused"]["launches"] == 0     # the plain version on the CPU
+    assert res["scan"]["launches"] == 0
+    for r in res.values():
+        assert r["lanes_differing"] == 0 and r["events"] > 0

@@ -25,6 +25,12 @@ from redqueen_tpu_torch.runtime import faultinject, numerics
 
 pytestmark = pytest.mark.cuda
 
+
+@pytest.fixture(autouse=True)
+def autotune_cache(tmp_path, monkeypatch):
+    """The lane layer's autotune cache in the test's own directory."""
+    monkeypatch.setenv("RQ_LANES_AUTOTUNE", str(tmp_path / "autotune.json"))
+
 VECTORS = [
     ((0, 0, 0, 0), (0x6B200159, 0x99BA4EFE)),
     ((0x13198A2E, 0x03707344, 0x243F6A88, 0x85A308D3),
@@ -268,3 +274,64 @@ def test_scan_resume_equals_continuous_run_on_card(card):
     t, s, n = chip_smoke.joined(log1, log2)
     assert int(n.sum()) > 64
     assert chip_smoke.same_prefix("resume", t, s, n, cont) == 0
+
+
+def _star(device, walls="hawkes", F=40):
+    sb = rt.StarBuilder(n_feeds=F, end_time=30.0)
+    for f in range(F):
+        if walls == "hawkes":
+            sb.wall_hawkes(f, 0.5, 0.8, 2.0)
+        else:
+            sb.wall_poisson(f, 1.0 + 0.05 * f)
+    sb.ctrl_opt(q=0.5)
+    return sb.build(wall_cap=256, post_cap=1024, device=device)
+
+
+@pytest.mark.parametrize("walls", ["hawkes", "poisson"])
+def test_star_doubling_equals_loop_on_card(card, walls):
+    """The star engine's two fire modes, compressed and not, give the same
+    posts and metrics bit for bit on the card."""
+    from redqueen_tpu_torch.parallel import star_run
+
+    cfg, wall, ctrl = _star(card, walls)
+    ref = rt.simulate_star(cfg, wall, ctrl, seed=3, device=card)
+    loop = rt.simulate_star(cfg, wall, ctrl, seed=3, fire_mode="loop",
+                            device=card)
+    assert ref.n_posts == loop.n_posts > 0
+    assert torch.equal(ref.own_times.view(torch.int32),
+                       loop.own_times.view(torch.int32))
+    keys = rt.sim._as_keys(np.array([3]), card)
+    wb, cb = wall.map(lambda x: x[None]), ctrl.map(lambda x: x[None])
+    outs = [star_run._get_fn(cfg, 1, c, m, card)(wb, cb, keys)
+            for c in (True, False) for m in ("loop", "doubling")]
+    for o in outs[1:]:
+        assert torch.equal(o[0], outs[0][0])
+        assert torch.equal(o[4].time_in_top_k, outs[0][4].time_in_top_k)
+
+
+def test_star_batch_lanes_equal_single_runs_on_card(card):
+    cfg, wall, ctrl = _star(card, "poisson")
+    rb = rt.simulate_star_batch(cfg, *rt.broadcast_star(wall, ctrl, 3),
+                                np.array([4, 5, 6]), device=card)
+    for i, s in enumerate((4, 5, 6)):
+        one = rt.simulate_star(cfg, wall, ctrl, seed=s, device=card)
+        assert torch.equal(one.own_times, rb.own_times[i])
+
+
+@pytest.mark.parametrize("engine", ["fused", "scan"])
+def test_simulate_ragged_bucketed_equals_dense_on_card(card, engine):
+    counts = np.array([1, 2, 3, 9, 16, 5, 12, 2, 16, 7] * 3)
+    seeds = np.arange(len(counts)) + 11
+    kernels.reset_launch_counts()
+    rb = rt.simulate_ragged(counts, seeds, end_time=8.0, engine=engine,
+                            max_buckets=4, return_logs=True, device=card)
+    launches = kernels.LAUNCHES["event_kernel"]
+    rd = rt.simulate_ragged(counts, seeds, end_time=8.0, engine=engine,
+                            max_buckets=1, return_logs=True, device=card)
+    assert rb.engine == ("cuda" if engine == "fused" else "scan")
+    assert launches == (rb.dispatches if engine == "fused" else 0)
+    for f in ("n_events", "top_k", "posts", "health"):
+        np.testing.assert_array_equal(getattr(rb, f), getattr(rd, f))
+    for (tb, sb), (td, sd) in zip(rb.logs, rd.logs):
+        assert np.array_equal(tb.view(np.int32), td.view(np.int32))
+        assert np.array_equal(sb, sd)

@@ -176,9 +176,17 @@ def test_resume_with_budget_matches_jax():
 
 
 def test_slab_and_rmtpp_name_their_roadmap_items():
+    """``slab=`` is ported now (Queue 1 item 3): a slabbed batch equals
+    the unslabbed one and refuses ``return_state``; RMTPP still names
+    its item."""
     _, (ct, pt, at) = tp.build_both(tp.golden, 4, 5.0, 16, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        rt.simulate_batch(ct, pt, at, np.arange(2), slab=1, device="cpu")
+    whole = rt.simulate_batch(ct, pt, at, np.arange(2), device="cpu")
+    slabbed = rt.simulate_batch(ct, pt, at, np.arange(2), slab=1,
+                                device="cpu")
+    _same_port_logs(whole, slabbed)
+    with pytest.raises(ValueError, match="return_state"):
+        rt.simulate_batch(ct, pt, at, np.arange(2), slab=1,
+                          return_state=True, device="cpu")
     gb = rt.GraphBuilder(n_sinks=2, end_time=5.0)
     gb.add_opt()
     gb.add_rmtpp()

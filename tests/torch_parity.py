@@ -21,6 +21,12 @@ RTOL = 1e-6
 
 
 @pytest.fixture(autouse=True)
+def autotune_cache(tmp_path, monkeypatch):
+    """The lane layer's autotune cache in the test's own directory."""
+    monkeypatch.setenv("RQ_LANES_AUTOTUNE", str(tmp_path / "autotune.json"))
+
+
+@pytest.fixture(autouse=True)
 def partitionable():
     old = jax.config.jax_threefry_partitionable
     jax.config.update("jax_threefry_partitionable", True)
