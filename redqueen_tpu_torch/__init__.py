@@ -1,7 +1,8 @@
 """redqueen_tpu_torch: the PyTorch/CUDA port of redqueen_tpu.
 
 A batch of components, each a mix of Poisson, Opt (RedQueen), Hawkes,
-RealData replay and piecewise-constant sources, runs on one of two
+RealData replay, piecewise-constant and RMTPP neural-policy sources
+(``models/rmtpp.py``), runs on one of two
 engines: the scan engine, PyTorch ops one event of every lane per step
 (the default, as in the JAX package, and the one route of ``simulate``,
 ``resume``, ``max_events``, ``return_state`` and key-array seeds), or
@@ -39,6 +40,9 @@ from .baselines import (
 )
 from .convert import (
     ctrl_params_from_numpy,
+    load_rmtpp_npz,
+    rmtpp_weights_from_jax,
+    rmtpp_weights_to_jax,
     sim_config_from_fields,
     sim_state_from_numpy,
     sim_state_to_numpy,
@@ -85,4 +89,5 @@ __all__ = [
     "build_preset", "run_preset", "power_law_graph", "SweepResult",
     "run_sweep", "run_sweep_star", "offline_rates", "offline_visibility",
     "offline_schedule", "budget_matched_poisson_rate",
+    "rmtpp_weights_from_jax", "rmtpp_weights_to_jax", "load_rmtpp_npz",
 ]

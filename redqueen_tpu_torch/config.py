@@ -27,7 +27,9 @@ from .models.base import (
     KIND_REALDATA,
     KIND_RMTPP,
     N_KINDS,
+    map_weights,
 )
+from .runtime.numerics import require_float32
 
 __all__ = [
     "SimConfig", "SourceParams", "GraphBuilder", "stack_components",
@@ -139,13 +141,17 @@ class SourceParams:
     rd_times: torch.Tensor  # f[S,Kr] replay timestamps (+inf padded)
     q: torch.Tensor         # f[S]   Opt posting cost
     s_sink: torch.Tensor    # f[F]   follower significance
-    rmtpp: Optional[dict] = None  # neural-policy weights (not ported yet)
+    # Neural-policy weights (models.rmtpp): the flax-layout tree of
+    # tensors, with a leading [B] once components are stacked.
+    rmtpp: Optional[dict] = None
 
     def to(self, device: DeviceLike) -> "SourceParams":
-        """A copy with every tensor on ``device``."""
+        """A copy with every tensor (the RMTPP weights too) on
+        ``device``."""
         dev = resolve_device(device)
-        return dataclasses.replace(self, **{
-            f: getattr(self, f).to(dev) for f in PARAM_FIELDS})
+        return dataclasses.replace(
+            self, rmtpp=map_weights(lambda w: w.to(dev), self.rmtpp),
+            **{f: getattr(self, f).to(dev) for f in PARAM_FIELDS})
 
 
 #: SimState fields, in declaration order (``budget`` and ``health`` may
@@ -347,17 +353,22 @@ class GraphBuilder:
         return self._add(KIND_OPT, sinks, q=float(q))
 
     def add_rmtpp(self, sinks=None) -> int:
-        """Neural-intensity broadcaster.  The port's engine does not run
-        it yet; the row exists so such components build and are refused
-        with a named reason."""
+        """Neural-intensity broadcaster; its weights are attached after
+        the build (``models.rmtpp.attach(params, weights)``)."""
         return self._add(KIND_RMTPP, sinks)
 
     # ---- assembly ----
 
-    def build(self, capacity: int = 4096, rmtpp_hidden: Optional[int] = None,
+    def build(self, capacity: int = 4096, dtype=torch.float32,
+              rmtpp_hidden: Optional[int] = None,
               device: DeviceLike = "cuda"):
         """Returns ``(SimConfig, SourceParams, adjacency bool[S, F])`` with
-        float32 parameters on ``device`` (the card by default)."""
+        float32 parameters on ``device`` (the card by default); the
+        positional order is the JAX builder's ``(capacity, dtype,
+        rmtpp_hidden)``, and ``dtype`` must name float32.
+        ``rmtpp_hidden`` sizes the recurrent-state slot: 16 by default
+        when the component has an RMTPP source, else 1."""
+        require_float32(dtype, "GraphBuilder.build")
         dev = resolve_device(device)
         S, F = len(self._rows), self.n_sinks
         if S == 0:
@@ -426,7 +437,8 @@ def stack_components(params_list: Sequence[SourceParams],
                      adj_list: Sequence[torch.Tensor]):
     """Stack same-layout components along a leading batch axis.  They
     must share the source-kind layout (which row is which policy); their
-    parameters may differ freely."""
+    parameters may differ freely.  RMTPP weights stack leaf by leaf, so
+    they must be attached to all the components or to none."""
     k0 = params_list[0].kind
     k0_host = k0.cpu()
     for p in params_list[1:]:
@@ -436,7 +448,9 @@ def stack_components(params_list: Sequence[SourceParams],
                 "source-kind layout (got differing params.kind rows); build "
                 "them from the same GraphBuilder structure"
             )
-    params = SourceParams(**{
-        f: torch.stack([getattr(p, f) for p in params_list])
-        for f in PARAM_FIELDS})
+    params = SourceParams(
+        rmtpp=map_weights(lambda *ws: torch.stack(ws),
+                          *(p.rmtpp for p in params_list)),
+        **{f: torch.stack([getattr(p, f) for p in params_list])
+           for f in PARAM_FIELDS})
     return params, torch.stack(list(adj_list))

@@ -2,14 +2,19 @@
 
 A JAX ``SourceParams``, ``SimState``, ``WallParams`` or ``CtrlParams``
 read out as numpy arrays (one per field) and a JAX ``SimConfig`` or
-``StarConfig`` read out as its plain fields become the port's objects, so both packages can run the very same component, and
-the port can resume a run the JAX package began.  Nothing here imports
-the JAX package: the caller reads the arrays out, for example
-``{f: np.asarray(getattr(p, f)) for f in PARAM_FIELDS}`` and
+``StarConfig`` read out as its plain fields become the port's objects,
+so both packages can run the very same component, and the port can
+resume a run the JAX package began (the RMTPP state ``h`` included).
+RMTPP weights cross as the flax tree of numpy arrays
+(``jax.tree.map(np.asarray, w)``): the port keeps the flax names and
+layout, so the map is leaf by leaf.  Nothing here imports the JAX
+package: the caller reads the arrays out, for example ``{f:
+np.asarray(getattr(p, f)) for f in PARAM_FIELDS}`` and
 ``dataclasses.asdict(cfg)``."""
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -18,11 +23,71 @@ import torch
 from .config import PARAM_FIELDS, STATE_FIELDS, SimConfig, SimState, \
     SourceParams
 from .device import DeviceLike, resolve_device
+from .models.base import map_weights
 
 __all__ = ["source_params_from_numpy", "source_params_to_numpy",
            "sim_config_from_fields", "sim_state_from_numpy",
            "sim_state_to_numpy", "star_config_from_fields",
-           "wall_params_from_numpy", "ctrl_params_from_numpy"]
+           "wall_params_from_numpy", "ctrl_params_from_numpy",
+           "rmtpp_weights_from_jax", "rmtpp_weights_to_jax",
+           "load_rmtpp_npz", "save_rmtpp_npz", "RMTPP_CHECKPOINT0"]
+
+#: The JAX package's committed RMTPP checkpoint
+#: (``experiments/checkpoints/rmtpp/0``, hidden 16) exported to npz: the
+#: weights under ``weights/<path>`` and the fit's record under
+#: ``info/<path>``, paths joined by ``/``.
+RMTPP_CHECKPOINT0 = os.path.join(os.path.dirname(__file__), "data",
+                                 "rmtpp_checkpoint0.npz")
+
+
+def rmtpp_weights_from_jax(tree, device: DeviceLike = "cuda"):
+    """RMTPP weights for the port (float32 tensors on ``device``) from the
+    JAX package's flax tree read out as numpy arrays (nested dicts, the
+    same names and ``[in, out]`` layout)."""
+    dev = resolve_device(device)
+    return map_weights(
+        lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev), tree)
+
+
+def rmtpp_weights_to_jax(weights):
+    """The port's RMTPP weights as the flax tree of float32 numpy arrays
+    (the inverse of :func:`rmtpp_weights_from_jax`)."""
+    return map_weights(
+        lambda t: t.detach().cpu().numpy().astype(np.float32), weights)
+
+
+def _flatten(tree, prefix):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def save_rmtpp_npz(path: str, weights, info=None) -> None:
+    """Write a weight tree of numpy arrays (and an optional ``info``
+    tree) as the npz :func:`load_rmtpp_npz` reads."""
+    arrays = _flatten(weights, "weights")
+    if info is not None:
+        arrays.update(_flatten(info, "info"))
+    np.savez(path, **arrays)
+
+
+def load_rmtpp_npz(path: Optional[str] = None,
+                   device: DeviceLike = "cuda"):
+    """``(weights, info)`` from an RMTPP npz (by default the exported
+    checkpoint :data:`RMTPP_CHECKPOINT0`): the weights as float32 tensors
+    on ``device``, ``info`` as a nested dict of numpy values."""
+    trees = {"weights": {}, "info": {}}
+    with np.load(RMTPP_CHECKPOINT0 if path is None else path) as z:
+        for name in z.files:
+            parts = name.split("/")
+            node = trees.setdefault(parts[0], {})
+            for p in parts[1:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = z[name]
+    return rmtpp_weights_from_jax(trees["weights"], device), trees["info"]
 
 
 def source_params_from_numpy(fields: Mapping[str, np.ndarray],
@@ -36,23 +101,25 @@ def source_params_from_numpy(fields: Mapping[str, np.ndarray],
     if missing or extra:
         raise KeyError(
             f"SourceParams fields: missing {missing}, unknown {extra}")
-    if fields.get("rmtpp") is not None:
-        raise NotImplementedError(
-            "RMTPP weights do not carry across yet (ROADMAP.md Queue 1 "
-            "item 5, the neural policy)")
     out = {}
     for f in PARAM_FIELDS:
         a = np.asarray(fields[f])
         dt = torch.int32 if f == "kind" else torch.float32
         out[f] = torch.from_numpy(np.array(a)).to(dev, dt)
-    return SourceParams(**out)
+    rmtpp = fields.get("rmtpp")
+    return SourceParams(**out, rmtpp=None if rmtpp is None
+                        else rmtpp_weights_from_jax(rmtpp, dev))
 
 
 def source_params_to_numpy(params: SourceParams) -> Dict[str, np.ndarray]:
-    """One numpy array per ``SourceParams`` field (the inverse of
+    """One numpy array per ``SourceParams`` field, and the RMTPP weights
+    as a numpy tree under ``rmtpp`` when attached (the inverse of
     :func:`source_params_from_numpy`)."""
-    return {f: getattr(params, f).detach().cpu().numpy()
-            for f in PARAM_FIELDS}
+    out = {f: getattr(params, f).detach().cpu().numpy()
+           for f in PARAM_FIELDS}
+    if params.rmtpp is not None:
+        out["rmtpp"] = rmtpp_weights_to_jax(params.rmtpp)
+    return out
 
 
 def sim_config_from_fields(fields: Mapping[str, Any]) -> SimConfig:
@@ -160,8 +227,7 @@ def wall_params_from_numpy(fields: Mapping[str, np.ndarray],
 def ctrl_params_from_numpy(fields: Mapping[str, Optional[np.ndarray]],
                            device: DeviceLike = "cuda"):
     """``CtrlParams`` on ``device`` from one numpy array (or None) per
-    field of a JAX ``CtrlParams``; RMTPP weights do not carry across
-    yet."""
+    field of a JAX ``CtrlParams``, the RMTPP weights as a numpy tree."""
     from .parallel.star_types import CTRL_FIELDS, CtrlParams
 
     dev = resolve_device(device)
@@ -171,11 +237,9 @@ def ctrl_params_from_numpy(fields: Mapping[str, Optional[np.ndarray]],
     if missing or extra:
         raise KeyError(f"CtrlParams fields: missing {missing}, unknown "
                        f"{extra}")
-    if fields.get("rmtpp") is not None:
-        raise NotImplementedError(
-            "RMTPP weights do not carry across yet (ROADMAP.md Queue 1 "
-            "item 5, the neural policy)")
-    return CtrlParams(**{
-        f: None if fields.get(f) is None else
-        torch.from_numpy(np.array(fields[f])).to(dev, torch.float32)
-        for f in known if f != "rmtpp"})
+    rmtpp = fields.get("rmtpp")
+    return CtrlParams(
+        rmtpp=None if rmtpp is None else rmtpp_weights_from_jax(rmtpp, dev),
+        **{f: None if fields.get(f) is None else
+           torch.from_numpy(np.array(fields[f])).to(dev, torch.float32)
+           for f in known if f != "rmtpp"})

@@ -1,8 +1,8 @@
 """Event traces for real-data replay, the part of the JAX package's
-``data/traces.py`` that BASELINE config 4 needs, in numpy: the
-heavy-tailed synthetic corpus, padding, and the star component built
-from a corpus.  The CSV and npz loaders, normalisation, bucketing and
-gap sequences wait for ROADMAP.md Queue 1 item 10."""
+``data/traces.py`` that BASELINE configs 4 and 5 need, in numpy: the
+heavy-tailed synthetic corpus, padding, the star component built from a
+corpus and the gap sequences RMTPP trains on.  The CSV and npz loaders,
+normalisation and bucketing wait for ROADMAP.md Queue 1 item 10."""
 
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ import numpy as np
 
 from ..device import DeviceLike
 
-__all__ = ["Traces", "pad_traces", "synthetic_twitter", "star_from_traces"]
+__all__ = ["Traces", "pad_traces", "gaps_from_traces", "synthetic_twitter",
+           "star_from_traces"]
 
 Traces = List[np.ndarray]  # one ascending float64 time array per user
 
@@ -30,6 +31,30 @@ def pad_traces(traces: Traces, length: Optional[int] = None
     for i, t in enumerate(traces):
         out[i, :len(t)] = t
     return out, lens
+
+
+def gaps_from_traces(traces: Traces, length: Optional[int] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-user inter-event gaps for likelihood training
+    (``models.rmtpp.fit``): ``(taus [U, L], mask [U, L])``, float64 zero
+    padding with a boolean validity mask.  The first gap is measured
+    from t = 0, where the policy's recurrent state starts; empty traces
+    become all-masked rows.  A trace longer than ``length`` raises."""
+    gaps = [np.diff(t, prepend=0.0) if len(t) else np.empty(0)
+            for t in traces]
+    lens = np.array([len(g) for g in gaps], np.int64)
+    L = (int(max(lens.max() if len(lens) else 0, 1)) if length is None
+         else int(length))
+    if lens.max(initial=0) > L:
+        raise ValueError(
+            f"trace with {int(lens.max())} events exceeds requested length "
+            f"{L} — refusing to truncate silently")
+    taus = np.zeros((len(traces), L), np.float64)
+    mask = np.zeros((len(traces), L), bool)
+    for i, g in enumerate(gaps):
+        taus[i, : len(g)] = g
+        mask[i, : len(g)] = True
+    return taus, mask
 
 
 def synthetic_twitter(seed: int, n_users: int, end_time: float,

@@ -1,6 +1,6 @@
 """Broadcasting policies.  Importing this package registers the built-in
-policy kinds (Poisson, Hawkes, piecewise, RealData, Opt) with the
-registry in :mod:`.base`; RMTPP, the neural policy, is not ported yet."""
+policy kinds (Poisson, Hawkes, piecewise, RealData, Opt and the RMTPP
+neural policy) with the registry in :mod:`.base`."""
 
 from . import base  # noqa: F401
 from . import poisson  # noqa: F401
@@ -8,3 +8,4 @@ from . import hawkes  # noqa: F401
 from . import piecewise  # noqa: F401
 from . import realdata  # noqa: F401
 from . import opt  # noqa: F401
+from . import rmtpp  # noqa: F401

@@ -39,7 +39,7 @@ __all__ = [
     "KIND_POISSON", "KIND_HAWKES", "KIND_PIECEWISE", "KIND_REALDATA",
     "KIND_OPT", "KIND_RMTPP", "KIND_NAMES", "N_KINDS",
     "SourceUpdate", "PolicyDef", "register_policy", "get_registry",
-    "n_kinds", "at_source",
+    "n_kinds", "at_source", "map_weights",
 ]
 
 KIND_POISSON = 0
@@ -67,6 +67,17 @@ def at_source(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     -> ``[B, ...]``."""
     idx = s.reshape((-1, 1) + (1,) * (x.dim() - 2))
     return torch.gather(x, 1, idx.expand((x.shape[0], 1) + x.shape[2:]))[:, 0]
+
+
+def map_weights(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure (the RMTPP
+    weight trees): ``fn(leaf, ...)`` per leaf position; None maps to
+    None."""
+    if trees[0] is None:
+        return None
+    if isinstance(trees[0], dict):
+        return {k: map_weights(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 class SourceUpdate(NamedTuple):

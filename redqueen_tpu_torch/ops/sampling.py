@@ -1,6 +1,5 @@
 """Point-process samplers, batched over leading axes: the counterpart of
-``redqueen_tpu.ops.sampling`` (its RMTPP samplers wait for the neural
-policy).
+``redqueen_tpu.ops.sampling``.
 
 Each function takes tensors whose leading axes are lanes (and sources)
 and does, element by element, the JAX function's arithmetic in the same
@@ -23,6 +22,7 @@ import torch
 from .. import device as _device
 from ..runtime.numerics import (
     DEFAULT_MAX_PROPOSALS,
+    require_float32,
     safe_div,
     safe_exp,
     safe_log1p,
@@ -37,6 +37,9 @@ __all__ = [
     "thinning_proposal",
     "piecewise_next_time",
     "piecewise_next_from_target",
+    "rmtpp_log_intensity",
+    "rmtpp_cum_hazard",
+    "rmtpp_next_delta",
     "PROBE_EVERY",
 ]
 
@@ -50,18 +53,27 @@ def _inf_like(x: torch.Tensor) -> torch.Tensor:
     return torch.full_like(x, _INF)
 
 
-def exponential_delta(key: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
+def exponential_delta(key: torch.Tensor, rate: torch.Tensor,
+                      dtype=None) -> torch.Tensor:
     """One Exp(rate) inter-arrival per key (``keys [..., 2]``, ``rate
-    [...]``) from ``jax.random.exponential``; +inf where rate <= 0."""
+    [...]``) from ``jax.random.exponential``; +inf where rate <= 0.
+    ``dtype``, if given, must name float32."""
+    if dtype is not None:
+        require_float32(dtype, "exponential_delta")
     e = prng.exponential(key)
+    rate = torch.as_tensor(rate, dtype=torch.float32, device=e.device)
     return torch.where(rate > 0, safe_div(e, rate), _inf_like(e))
 
 
-def exponential_from_uniform(u: torch.Tensor,
-                             rate: torch.Tensor) -> torch.Tensor:
+def exponential_from_uniform(u: torch.Tensor, rate: torch.Tensor,
+                             dtype=None) -> torch.Tensor:
     """Exp(rate) from a pre-drawn uniform word (the step panel's):
-    ``-safe_log1p(-u) / rate``; +inf where rate <= 0."""
-    e = -safe_log1p(-u)
+    ``-safe_log1p(-u) / rate``; +inf where rate <= 0.  ``dtype``, if
+    given, must name float32."""
+    if dtype is not None:
+        require_float32(dtype, "exponential_from_uniform")
+    e = -safe_log1p(-torch.as_tensor(u, dtype=torch.float32))
+    rate = torch.as_tensor(rate, dtype=torch.float32, device=e.device)
     return torch.where(rate > 0, safe_div(e, rate), _inf_like(e))
 
 
@@ -206,3 +218,41 @@ def piecewise_next_time(key, t_from, change_times, rates):
                              device=change_times.device)
     return piecewise_next_from_target(target, t_from[..., None],
                                       change_times, rates)
+
+
+def rmtpp_log_intensity(a, w, tau):
+    """The RMTPP intensity (Du et al. 2016, the neural policy of BASELINE
+    config 5): log lambda(tau) = a + w * tau, where a = v.h + b embeds the
+    history and tau is the time since the source's last own event."""
+    return a + w * tau
+
+
+def rmtpp_cum_hazard(a, w, tau):
+    """The integral of exp(a + w u) over [0, tau]: exp(a) * expm1(w tau) /
+    w, and exp(a) * tau in the limit |w| < 1e-6."""
+    small = torch.abs(w) < 1e-6
+    w_safe = torch.where(small, torch.ones_like(w), w)
+    return safe_exp(a) * torch.where(
+        small, tau, safe_div(torch.expm1(w * tau), w_safe))
+
+
+def rmtpp_next_delta(key, a, w, dtype=None):
+    """The next inter-event time of the intensity exp(a + w tau) by
+    inverting its hazard at E from ``jax.random.exponential(key)`` (keys
+    ``[..., 2]``, ``a``/``w`` broadcasting against ``[...]``): tau =
+    log1p(w E exp(-a)) / w, E exp(-a) where |w| < 1e-6.  With w < 0 the
+    total hazard exp(a) / (-w) is finite, and a draw past it (z = w E
+    exp(-a) <= -1) never fires: +inf.  ``dtype``, if given, must name
+    float32."""
+    if dtype is not None:
+        require_float32(dtype, "rmtpp_next_delta")
+    e = prng.exponential(key)
+    a = torch.as_tensor(a, dtype=torch.float32, device=e.device)
+    w = torch.as_tensor(w, dtype=torch.float32, device=e.device)
+    small = torch.abs(w) < 1e-6
+    w_safe = torch.where(small, torch.ones_like(w), w)
+    z = w * e * safe_exp(-a)
+    return torch.where(
+        small, e * safe_exp(-a),
+        torch.where(z > -1.0, safe_div(safe_log1p(z), w_safe),
+                    _inf_like(z)))

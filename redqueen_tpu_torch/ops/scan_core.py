@@ -47,11 +47,12 @@ from ..config import SimConfig, SimState, SourceParams
 from ..models.base import (
     KIND_HAWKES,
     KIND_REALDATA,
+    KIND_RMTPP,
     at_source,
     get_registry,
 )
 from ..runtime import numerics
-from ..runtime.numerics import nan_to_posinf
+from ..runtime.numerics import nan_to_posinf, require_float32
 from . import prng
 from .threefry import MASK32, threefry2x32, uniform_from_bits
 
@@ -78,11 +79,13 @@ def _select(choice: torch.Tensor, new: Optional[torch.Tensor],
 
 
 def init_state(cfg: SimConfig, params: SourceParams, adj,
-               key: torch.Tensor) -> SimState:
+               key: torch.Tensor, dtype=torch.float32) -> SimState:
     """The initial carry of a batch: component keys ``key [B, 2]``,
     per-source keys ``fold_in(key, s)``, and every source's first draw
     from its init key ``fold_in(keys[s], 0)``.  A NaN first time or a
-    failed sampler marks the lane sick from step 0 (the NaN becomes +inf)."""
+    failed sampler marks the lane sick from step 0 (the NaN becomes +inf).
+    ``dtype`` must name float32."""
+    require_float32(dtype, "init_state")
     B, S = params.kind.shape
     dev = params.rate.device
     f32 = torch.float32
@@ -152,6 +155,9 @@ class RunChunk:
         self.needs_fire_key = any(reg[k].fire_uses_key for k in kinds)
         self.has_hawkes = KIND_HAWKES in kinds
         self.has_realdata = KIND_REALDATA in kinds
+        self.has_rmtpp = KIND_RMTPP in kinds
+        # exc_t is the Hawkes fold time and RMTPP's last own event time.
+        self.has_exc_t = self.has_hawkes or self.has_rmtpp
         # Panel word w of the pairs' words goes to slot w's place: word
         # 2i + j is word j of pair pairs[i], i.e. slot 2 * pairs[i] + j.
         S = cfg.n_sources
@@ -217,12 +223,15 @@ class RunChunk:
         # The fired source's resample: every compiled kind's, the fired
         # kind's kept per lane.
         kind = at_source(params.kind, s)
-        t_new = exc_new = exc_t_new = rd_new = ok = None
+        t_new = exc_new = exc_t_new = rd_new = h_new = ok = None
         if self.has_hawkes:
             exc_new = at_source(state.exc, s)
+        if self.has_exc_t:
             exc_t_new = at_source(state.exc_t, s)
         if self.has_realdata:
             rd_new = at_source(state.rd_ptr, s)
+        if self.has_rmtpp:
+            h_new = at_source(state.h, s)
         for k, on_fire in self.fire:
             mine = kind == k
             upd = on_fire(params, state, s, t_ev, key_fire, us[:, 0],
@@ -231,9 +240,12 @@ class RunChunk:
                 torch.where(mine, upd.t_next, t_new)
             if self.has_hawkes:
                 exc_new = _select(mine, upd.exc, exc_new)
+            if self.has_exc_t:
                 exc_t_new = _select(mine, upd.exc_t, exc_t_new)
             if self.has_realdata:
                 rd_new = _select(mine, upd.rd_ptr, rd_new)
+            if self.has_rmtpp:
+                h_new = _select(mine[:, None], upd.h, h_new)
             if upd.ok is not None:
                 # Kinds that cannot fail are ok; one kind is the lane's.
                 ok_k = upd.ok | ~mine
@@ -249,6 +261,9 @@ class RunChunk:
                                 numerics.BIT_SAMPLER_FAILURE, 0)
         if self.has_hawkes:
             bits |= torch.where(valid & ~torch.isfinite(exc_new),
+                                numerics.BIT_NONFINITE_STATE, 0)
+        if self.has_rmtpp:
+            bits |= torch.where(valid & ~torch.isfinite(h_new).all(-1),
                                 numerics.BIT_NONFINITE_STATE, 0)
         health = health | bits
         col = s[:, None]
@@ -280,9 +295,17 @@ class RunChunk:
         if self.has_hawkes:
             fields["exc"] = torch.where(
                 v1, state.exc.scatter(1, col, exc_new[:, None]), state.exc)
+        if self.has_exc_t:
             fields["exc_t"] = torch.where(
                 v1, state.exc_t.scatter(1, col, exc_t_new[:, None]),
                 state.exc_t)
+        if self.has_rmtpp:
+            H = state.h.shape[-1]
+            fields["h"] = torch.where(
+                v1[..., None],
+                state.h.scatter(1, col[..., None].expand(B, 1, H),
+                                h_new[:, None, :]),
+                state.h)
         if self.has_realdata:
             fields["rd_ptr"] = torch.where(
                 v1, state.rd_ptr.scatter(1, col, rd_new[:, None]),

@@ -10,8 +10,8 @@ tensor ``[..., cap]``, its valid count and a ``truncated`` flag, True
 iff the buffer filled while events before the horizon remained (one
 probe slot past the buffer makes the flag exact).
 
-The Hawkes and piecewise samplers are a ``lax.scan`` over ``cap + 1``
-slots in the JAX package.  Here they are loops that stop once every
+The Hawkes, piecewise and RMTPP samplers are a ``lax.scan`` over ``cap +
+1`` slots in the JAX package.  Here they are loops that stop once every
 source has absorbed (its clock at +inf): every later slot of the scan is
 +inf, so the stream is the same.  The host checks for a live source
 once every few steps (``sampling.PROBE_EVERY``)."""
@@ -23,20 +23,19 @@ from typing import NamedTuple
 import torch
 
 from .. import device as _device
+from ..models import rmtpp
 from ..runtime.numerics import DEFAULT_MAX_PROPOSALS, safe_div, safe_exp
 from . import prng
 from .sampling import (
     PROBE_EVERY,
     hawkes_intensity,
     piecewise_next_time,
+    rmtpp_next_delta,
     thinning_proposal,
 )
 
 __all__ = ["Stream", "poisson_stream", "hawkes_stream", "piecewise_stream",
            "realdata_stream", "rmtpp_stream"]
-
-_RMTPP_ITEM = "ROADMAP.md Queue 1 item 5 (neural policy)"
-
 
 class Stream(NamedTuple):
     """Events on (t0, T]: ``times`` [..., cap] ascending, +inf-padded;
@@ -186,7 +185,29 @@ def realdata_stream(times, t0, T) -> Stream:
 
 
 def rmtpp_stream(weights, key, t0, T, cap: int, hidden: int) -> Stream:
-    """The neural policy's stream is not ported yet."""
-    raise NotImplementedError(
-        f"the RMTPP stream (the neural policy) is not ported yet — "
-        f"{_RMTPP_ITEM}")
+    """The RMTPP policy's events on (t0, T]: its intensity depends only on
+    its own past, so the whole stream samples on its own, carrying the
+    time and the hidden state.  Slot i draws its gap from ``fold_in(key,
+    i)`` with the head of the current state; an event within the horizon
+    advances the GRU by its gap, anything else absorbs the source.
+    ``weights`` broadcast against the leading axes of ``key [..., 2]``
+    (unstacked weights serve every stream)."""
+    dev = key.device
+    shape = key.shape[:-1]
+    t = torch.full(shape, float(t0), dtype=torch.float32, device=dev)
+    h = torch.zeros(shape + (int(hidden),), dtype=torch.float32, device=dev)
+    inf = float("inf")
+
+    def step(carry, i):
+        t, h = carry
+        a, w = rmtpp._head(weights, h)
+        tau = rmtpp_next_delta(prng.fold_in(key, i), a, w)
+        t_new = t + tau
+        fired = torch.isfinite(t_new) & (t_new <= T)
+        h = torch.where(fired[..., None], rmtpp._step_h(weights, h, tau), h)
+        t = torch.where(fired, t_new, torch.full_like(t_new, inf))
+        return (t, h), t_new, fired
+
+    times_all = _slots(step, (t, h), shape, cap, dev)
+    times, n = _finish(times_all[..., :cap], t0, T)
+    return Stream(times, n, times_all[..., cap] <= T)

@@ -352,19 +352,32 @@ def _slice_params(params, s0: int, s1: int):
     import dataclasses
 
     from ..config import PARAM_FIELDS
+    from ..models.base import map_weights
 
-    return dataclasses.replace(params, **{
-        f: getattr(params, f)[s0:s1] for f in PARAM_FIELDS})
+    return dataclasses.replace(
+        params, rmtpp=map_weights(lambda w: w[s0:s1], params.rmtpp),
+        **{f: getattr(params, f)[s0:s1] for f in PARAM_FIELDS})
 
 
 def dispatch_slabbed(cfg, params, adj, seeds, slab: int, *,
                      max_chunks: int = 100, sync_every: int = 8,
                      max_events=None, engine: str = "scan",
+                     dispatch: Optional[Callable] = None,
                      device: DeviceLike = "cuda"):
-    """Run the [B]-lane batch as consecutive ``slab``-lane
-    ``sim.simulate_batch`` dispatches and return the per-slab
-    ``EventLog`` list, not yet concatenated."""
-    from ..sim import simulate_batch
+    """Run the [B]-lane batch as consecutive ``slab``-lane dispatches and
+    return the per-slab ``EventLog`` list, not yet concatenated.
+
+    ``dispatch(cfg, params, adj, seeds) -> EventLog`` replaces the
+    per-slab dispatch (a bench closes its own options over it); the
+    default is ``sim.simulate_batch`` with the keyword options here."""
+    if dispatch is None:
+        from ..sim import simulate_batch
+
+        def dispatch(c, p, a, s):
+            return simulate_batch(c, p, a, s, max_chunks=max_chunks,
+                                  sync_every=sync_every,
+                                  max_events=max_events, engine=engine,
+                                  device=device)
 
     seeds_np = np.asarray(seeds.detach().cpu()
                           if isinstance(seeds, torch.Tensor) else seeds)
@@ -373,11 +386,8 @@ def dispatch_slabbed(cfg, params, adj, seeds, slab: int, *,
     logs = []
     with _telemetry.span("lanes.slab", lanes=B, slab=slab) as sp:
         for s0, s1 in iter_slabs(B, slab):
-            logs.append(simulate_batch(
-                cfg, _slice_params(params, s0, s1), adj[s0:s1],
-                seeds_np[s0:s1], max_chunks=max_chunks,
-                sync_every=sync_every, max_events=max_events, engine=engine,
-                device=device))
+            logs.append(dispatch(cfg, _slice_params(params, s0, s1),
+                                 adj[s0:s1], seeds_np[s0:s1]))
         sp.set(dispatches=sum(lg.dispatches or 0 for lg in logs))
     _telemetry.counter("lanes.slab.dispatches", len(logs))
     return logs
@@ -413,15 +423,17 @@ def concat_slab_logs(cfg, logs):
 def simulate_slabbed(cfg, params, adj, seeds, slab: int, *,
                      max_chunks: int = 100, sync_every: int = 8,
                      max_events=None, engine: str = "scan",
+                     dispatch: Optional[Callable] = None,
                      device: DeviceLike = "cuda"):
     """Dispatch a [B]-lane batch as consecutive ``slab``-lane dispatches
     with bit-identical per-lane results, as one concatenated
-    ``EventLog``.  A fully sick slab raises ``NumericalHealthError`` even
-    if another slab is healthy."""
+    ``EventLog``; ``dispatch`` as in :func:`dispatch_slabbed`.  A fully
+    sick slab raises ``NumericalHealthError`` even if another slab is
+    healthy."""
     return concat_slab_logs(cfg, dispatch_slabbed(
         cfg, params, adj, seeds, slab, max_chunks=max_chunks,
         sync_every=sync_every, max_events=max_events, engine=engine,
-        device=device))
+        dispatch=dispatch, device=device))
 
 
 def probe_slab_cost(run: Callable[[], object], n: int) -> float:

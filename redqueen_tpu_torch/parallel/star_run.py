@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models.base import KIND_OPT
+from ..models.base import KIND_OPT, map_weights
 from ..ops import prng
 from ..sim import _as_keys
 from ..utils.metrics import FeedMetrics
@@ -205,7 +205,9 @@ def stack_star(wall_list: Sequence[WallParams],
     ctrl = CtrlParams(**{
         f: (torch.stack([getattr(c, f) for c in ctrl_list])
             if isinstance(getattr(c0, f), torch.Tensor) else getattr(c0, f))
-        for f in c0.__dataclass_fields__})
+        for f in c0.__dataclass_fields__ if f != "rmtpp"},
+        rmtpp=map_weights(lambda *ws: torch.stack(ws),
+                          *(c.rmtpp for c in ctrl_list)))
     return wall, ctrl
 
 

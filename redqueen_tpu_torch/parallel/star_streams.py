@@ -25,7 +25,6 @@ from .star_types import _EMPTY, StarConfig, WallParams
 __all__ = ["_wall_branches", "_wall_streams", "_ctrl_stream",
            "_check_wall_kinds"]
 
-_RMTPP_ITEM = "ROADMAP.md Queue 1 item 5 (neural policy)"
 _SLOT_FIELDS = ("rate", "l0", "alpha", "beta", "pw_times", "pw_rates",
                 "rd_times")
 
@@ -143,9 +142,12 @@ def _ctrl_stream(cfg: StarConfig, ctrl, key):
     if k == KIND_REALDATA:
         return _replay(ctrl.rd_times, t0, T, K)
     if k == KIND_RMTPP:
-        raise NotImplementedError(
-            f"an RMTPP controlled broadcaster is not ported yet — "
-            f"{_RMTPP_ITEM}")
+        # RMTPP depends only on its own history too.
+        if ctrl.rmtpp is None:
+            raise ValueError(
+                "ctrl_kind=RMTPP requires CtrlParams.rmtpp weights")
+        return streams.rmtpp_stream(ctrl.rmtpp, key, t0, T, K,
+                                    cfg.rmtpp_hidden)
     raise ValueError(f"unsupported ctrl_kind {k}")
 
 

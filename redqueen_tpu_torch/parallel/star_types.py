@@ -11,7 +11,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models.base import KIND_OPT
+from ..models.base import KIND_OPT, map_weights
 from ..utils.metrics import FeedMetrics
 
 __all__ = ["StarConfig", "WallParams", "CtrlParams", "StarResult",
@@ -82,7 +82,7 @@ class CtrlParams:
     l0: Optional[torch.Tensor] = None     # f[] Hawkes base rate
     alpha: Optional[torch.Tensor] = None  # f[] Hawkes jump
     beta: Optional[torch.Tensor] = None   # f[] Hawkes decay
-    rmtpp: Optional[dict] = None
+    rmtpp: Optional[dict] = None          # RMTPP weight tree
 
     def _fields(self):
         return CTRL_FIELDS + tuple(f for f in _CTRL_OPTIONAL
@@ -90,12 +90,13 @@ class CtrlParams:
 
     def to(self, device: DeviceLike) -> "CtrlParams":
         dev = resolve_device(device)
-        return dataclasses.replace(self, **{
-            f: getattr(self, f).to(dev) for f in self._fields()})
+        return self.map(lambda x: x.to(dev))
 
     def map(self, fn) -> "CtrlParams":
-        return dataclasses.replace(self, **{
-            f: fn(getattr(self, f)) for f in self._fields()})
+        """``fn`` over every tensor, the RMTPP weights' leaves too."""
+        return dataclasses.replace(
+            self, rmtpp=map_weights(fn, self.rmtpp),
+            **{f: fn(getattr(self, f)) for f in self._fields()})
 
 
 class StarResult(NamedTuple):

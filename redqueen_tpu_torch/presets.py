@@ -3,8 +3,8 @@ counterpart of ``redqueen_tpu.presets``.
 
 Each preset returns a ready-to-run bundle:
 
-- batch presets (1, 3) -> ``("batch", cfg, params, adj, opt_row)`` for
-  ``sim.simulate_batch``;
+- batch presets (1, 3, 5) -> ``("batch", cfg, params, adj, row)`` for
+  ``sim.simulate_batch``, ``row`` the controlled broadcaster's source;
 - star presets (2, 4) -> ``("star", cfg, wall, ctrl)`` for
   ``parallel.bigf.simulate_star``;
 - ``power_law`` -> ``("ragged", counts, opts)`` for
@@ -12,8 +12,7 @@ Each preset returns a ready-to-run bundle:
 
 :func:`run_preset` runs any of them and reports one metrics dict.  Every
 preset takes a ``scale`` in (0, 1] that shrinks it, and a ``device``
-(the card by default).  Config 5 (the RMTPP neural policy) waits for
-ROADMAP.md Queue 1 item 5."""
+(the card by default)."""
 
 from __future__ import annotations
 
@@ -27,7 +26,6 @@ from .device import DeviceLike, resolve_device
 
 __all__ = ["PRESETS", "build_preset", "run_preset", "power_law_graph"]
 
-_RMTPP_ITEM = "ROADMAP.md Queue 1 item 5 (neural policy)"
 _MESH_ITEM = "ROADMAP.md Queue 1 item 6 (mesh -> torch.distributed)"
 
 
@@ -113,11 +111,35 @@ def config4_replay(scale: float = 1.0, end_time: float = 100.0,
     return ("star", cfg, wall, ctrl)
 
 
-def config5_rmtpp(*args, **kwargs):
-    """The RMTPP neural policy (BASELINE config 5) is not ported yet."""
-    raise NotImplementedError(
-        f"config 5 (the RMTPP neural policy) is not ported yet — "
-        f"{_RMTPP_ITEM}")
+def config5_rmtpp(scale: float = 1.0, end_time: float = 100.0,
+                  wall_rate: float = 1.0, hidden: int = 8,
+                  train_steps: int = 120, seed: int = 0,
+                  capacity: int = 2048, weights=None,
+                  device: DeviceLike = "cuda"):
+    """The RMTPP neural intensity as the controlled broadcaster against 10
+    Poisson-feed followers (BASELINE config 5), behind the same policy
+    seam as Opt.  Unless ``weights`` is given it trains a small model
+    (``models.rmtpp.fit``, ``train_steps`` steps of Adam on ``device``)
+    on 32 gap sequences of 24 Exp(mean 0.7) gaps from
+    ``RandomState(seed)``."""
+    from .config import GraphBuilder
+    from .models import rmtpp
+
+    n_followers = _scaled(10, scale)
+    if weights is None:
+        rng = np.random.RandomState(seed)
+        taus = rng.exponential(0.7, (32, 24)).astype(np.float32)
+        mask = np.ones_like(taus, bool)
+        weights, _, _ = rmtpp.fit(seed, taus, mask, hidden=hidden,
+                                  steps=train_steps, device=device)
+    gb = GraphBuilder(n_sinks=n_followers, end_time=end_time)
+    row = gb.add_rmtpp()
+    for i in range(n_followers):
+        gb.add_poisson(rate=wall_rate, sinks=[i])
+    cfg, params, adj = gb.build(capacity=capacity, rmtpp_hidden=hidden,
+                                device=device)
+    params = rmtpp.attach(params, weights).to(device)
+    return ("batch", cfg, params, adj, row)
 
 
 def power_law_graph(B, alpha: float = 2.2, seed: int = 0,

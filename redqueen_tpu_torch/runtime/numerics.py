@@ -19,12 +19,31 @@ import torch
 
 __all__ = [
     "safe_exp", "safe_log", "safe_log1p", "safe_div", "nan_to_posinf",
-    "DEFAULT_MAX_PROPOSALS",
+    "require_float32", "DEFAULT_MAX_PROPOSALS",
     "BIT_NONFINITE_TIME", "BIT_NONFINITE_STATE",
     "BIT_SAMPLER_FAILURE", "BIT_NONFINITE_RESULT", "HEALTH_BITS",
     "decode_health", "describe_health", "sick_lanes",
     "NumericalHealthError", "poison_lane", "POISON_MODES",
 ]
+
+
+def require_float32(dtype, where: str) -> torch.dtype:
+    """``torch.float32`` for a ``dtype=`` argument that names float32
+    (torch's, numpy's or the JAX package's ``jnp.float32``, or the
+    string); any other dtype raises ``TypeError`` naming it and
+    ``where``.  The port computes in float32 throughout: the keyword is
+    there so that calls written for the JAX package's signatures run."""
+    if dtype is torch.float32:
+        return torch.float32
+    try:
+        ok = np.dtype(dtype) == np.float32
+    except TypeError:
+        ok = False
+    if not ok:
+        raise TypeError(
+            f"{where}: dtype={dtype!r} is not supported — the port "
+            f"computes in float32 only")
+    return torch.float32
 
 
 def _exp_cap(dtype: torch.dtype) -> float:

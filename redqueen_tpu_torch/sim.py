@@ -9,7 +9,8 @@
 Two engines run a batch.  The scan engine (``ops/scan_core.py``, the
 default, as in the JAX package) is PyTorch ops, one event of every lane
 per step, and serves every contract: ``max_events``, ``return_state``,
-key-array seeds and every non-neural kind.  The fused engine
+key-array seeds and every policy kind, the RMTPP neural policy
+included.  The fused engine
 (``ops/event_engine.py``) runs the hand-written CUDA event kernel on the
 card (its plain version on the CPU); ``engine="fused"`` forces it and
 ``engine="auto"`` picks it where it covers the run (see
@@ -34,6 +35,7 @@ from . import models as _models  # noqa: F401  (registers the policies)
 from .config import SimConfig, SimState, SourceParams, stack_components
 from . import device as _device
 from .device import DeviceLike, resolve_device
+from .models import rmtpp
 from .models.base import KIND_PIECEWISE, KIND_REALDATA, KIND_RMTPP
 from .ops import kernels, prng
 from .ops.event_engine import _spec_for, coverage, simulate_fused
@@ -44,12 +46,10 @@ from .runtime import numerics as _numerics
 from .runtime.numerics import NumericalHealthError
 
 __all__ = ["EventLog", "simulate", "simulate_batch", "resume",
-           "select_engine", "ENGINES", "NumericalHealthError"]
+           "select_engine", "init_state", "ENGINES", "NumericalHealthError"]
 
 #: What ``engine=`` takes.
 ENGINES = ("scan", "fused", "auto")
-
-_RMTPP_ITEM = "ROADMAP.md Queue 1 item 5 (neural policy)"
 
 
 class EventLog:
@@ -106,12 +106,41 @@ def _check_kinds(cfg: SimConfig, params: SourceParams):
         )
 
 
-def _check_no_rmtpp(cfg: SimConfig, params: SourceParams):
-    if KIND_RMTPP in set(cfg.present_kinds) or \
-            bool((params.kind == KIND_RMTPP).any()):
-        raise NotImplementedError(
-            f"RMTPP sources (the neural policy) are not ported yet — "
-            f"{_RMTPP_ITEM}")
+def _weight_leaves(tree, path=""):
+    """``(path, tensor)`` per leaf of a weight tree, the path written as
+    ``jax.tree_util.keystr`` writes it (``['gru']['ir']['kernel']``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _weight_leaves(v, f"{path}[{k!r}]")
+    else:
+        yield path, tree
+
+
+def _check_weights(cfg: SimConfig, params: SourceParams):
+    """RMTPP rows need attached weights (``models.rmtpp.attach``), all
+    finite, whose hidden size is the config's recurrent-state slot;
+    catch each misuse on the host with a clear message instead of a
+    never-firing source or a shape error inside the scan."""
+    if params.rmtpp is not None:
+        for path, leaf in _weight_leaves(params.rmtpp):
+            if not bool(torch.isfinite(torch.as_tensor(leaf)).all()):
+                raise ValueError(
+                    f"params.rmtpp weight leaf {path} holds a non-finite "
+                    f"value — refusing to deploy a diverged checkpoint as "
+                    f"a broadcaster policy")
+    if not bool((params.kind == KIND_RMTPP).any()):
+        return
+    if params.rmtpp is None:
+        raise ValueError(
+            "component has RMTPP sources but params.rmtpp is None — attach "
+            "trained weights via redqueen_tpu_torch.models.rmtpp.attach("
+            "params, w)")
+    hidden = rmtpp.hidden_of(params.rmtpp)
+    if hidden != cfg.rmtpp_hidden:
+        raise ValueError(
+            f"RMTPP weights have hidden={hidden} but the config was built "
+            f"with rmtpp_hidden={cfg.rmtpp_hidden}; pass "
+            f"GraphBuilder.build(rmtpp_hidden={hidden})")
 
 
 # (field name, allow +inf): +inf is a legal padding value in the piecewise
@@ -364,10 +393,10 @@ def simulate_batch(cfg: SimConfig, params: SourceParams, adj, seeds,
     adj = torch.as_tensor(adj).to(dev)
     _check_kinds(cfg, params)
     _check_finite_params(cfg, params)
+    _check_weights(cfg, params)
     if name == "fused":
         return simulate_fused(cfg, params, adj, seeds, max_chunks=max_chunks,
                               sync_every=sync_every, device=dev)
-    _check_no_rmtpp(cfg, params)
     keys = _as_keys(seeds, dev)
     B = keys.shape[0]
     state = _maybe_poison(init_state(cfg, params, adj, keys), B)
@@ -413,7 +442,7 @@ def resume(cfg: SimConfig, params: SourceParams, adj, state: SimState,
     adj = torch.as_tensor(adj).to(dev)
     _check_kinds(cfg, params)
     _check_finite_params(cfg, params)
-    _check_no_rmtpp(cfg, params)
+    _check_weights(cfg, params)
     budget = None
     if max_events is not None:
         budget = state.n_events + _budget(max_events, state.batch_size, dev)

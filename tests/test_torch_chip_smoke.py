@@ -219,3 +219,92 @@ def test_phase7fg_power_law_routes():
     assert res["scan"]["launches"] == 0
     for r in res.values():
         assert r["lanes_differing"] == 0 and r["events"] > 0
+
+
+# ---- phase 8, the headline bench and config 5, rehearsed on the CPU ----
+
+
+def _bench_line(gate_ok=(True, True), route="cuda", launches=3,
+                platform="NVIDIA H100 80GB HBM3"):
+    eng = {n: {"route": r, "events": 1000, "secs": 1.0, "launches": l,
+               "events_per_sec": 1000.0, "top1": 80.0, "oracle_top1": 80.1,
+               "gate": 0.1, "gate_tol": 2.0, "gate_ok": ok}
+           for n, r, l, ok in (("scan", "scan", 0, gate_ok[0]),
+                               ("fused", route, launches, gate_ok[1]))}
+    return {"metric": "simulated events/sec (10000x100000 graph)",
+            "value": 1000.0, "unit": "events/s", "vs_baseline": 10.0,
+            "oracle_events_per_sec": 100.0, "engine": "fused",
+            "platform": platform, "engines": eng}
+
+
+def _fake_bench(monkeypatch, line, rc=0):
+    import json
+    import subprocess
+    import types
+
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return types.SimpleNamespace(returncode=rc, stdout=json.dumps(line)
+                                     + "\n", stderr="oracle ...\n")
+    monkeypatch.setattr(subprocess, "run", run)
+    return calls
+
+
+def test_phase8a_bench_line_is_checked(monkeypatch):
+    calls = _fake_bench(monkeypatch, _bench_line())
+    line = chip_smoke.bench_run(platform="NVIDIA H100 80GB HBM3")
+    assert calls[0][1:3] == ["-m", "redqueen_tpu_torch.bench"]
+    assert line["engines"]["fused"]["launches"] == 3
+
+
+@pytest.mark.parametrize("bad", ["gate", "platform", "route", "rc"])
+def test_phase8a_fails_on_a_bad_bench_line(monkeypatch, bad):
+    line = _bench_line(gate_ok=(True, False) if bad == "gate" else
+                       (True, True), route="plain" if bad == "route"
+                       else "cuda")
+    _fake_bench(monkeypatch, line, rc=3 if bad == "rc" else 0)
+    with pytest.raises(SystemExit):
+        chip_smoke.bench_run(platform="cpu" if bad == "platform" else
+                             "NVIDIA H100 80GB HBM3")
+
+
+@pytest.fixture(scope="module")
+def config5_small():
+    """Phase 8 (b) at a small size on the CPU: a 3-step fit, 8 seeds,
+    T = 10, gated against 8 oracle seeds."""
+    return chip_smoke.config5_full(
+        "cpu", kw=dict(scale=1.0, end_time=10.0, hidden=8, capacity=128),
+        n_seeds=8, fit_steps=3, oracle_seeds=8)
+
+
+def test_phase8b_config5_gated_against_the_oracle(config5_small):
+    res, weights = config5_small
+    assert res["events"] > 8 * 50 and res["fit_steps"] == 3
+    assert res["posts"]["diff"] <= res["posts"]["tol"]
+    assert res["top1"]["diff"] <= res["top1"]["tol"]
+    assert len(res["losses"]) == 3 and weights["v"]["kernel"].shape == (8, 1)
+
+
+def test_phase8cdef_on_one_device(config5_small):
+    res, weights = config5_small
+    c = chip_smoke.config5_cross(weights, "cpu", B=4, end_time=10.0,
+                                 capacity=64)
+    assert c["lanes_differing"] == 0 and c["events_card"] > 0
+    d = chip_smoke.rmtpp_stream_cross(weights, "cpu", n=8, T=10.0, cap=64)
+    assert d["counts_differing"] == 0 and d["max_rel"] == 0.0
+    e = chip_smoke.config5_npz("cpu", B=4, end_time=10.0, capacity=64,
+                               oracle_seeds=8)
+    assert e["events"] > 0
+    f = chip_smoke.fit_cross(res["losses"], fit_steps=3)
+    assert f["max_rel_gap"] == 0.0
+
+
+def test_phase8f_gate_fails_on_a_diverged_fit():
+    taus, mask = chip_smoke.config5_data()
+    from redqueen_tpu_torch.models import rmtpp
+
+    _, _, cpu = rmtpp.fit(0, taus, mask, hidden=8, steps=2, device="cpu")
+    with pytest.raises(SystemExit):
+        chip_smoke.fit_cross(cpu * (1 + 2e-3), fit_steps=2)

@@ -335,3 +335,62 @@ def test_simulate_ragged_bucketed_equals_dense_on_card(card, engine):
     for (tb, sb), (td, sd) in zip(rb.logs, rd.logs):
         assert np.array_equal(tb.view(np.int32), td.view(np.int32))
         assert np.array_equal(sb, sd)
+
+
+# ---- config 5 (RMTPP) and the headline bench on the card ----
+
+
+def _rmtpp_batch(dev, B=32, T=30.0, hidden=8):
+    from redqueen_tpu_torch.models import rmtpp
+
+    w = rmtpp.init_weights(3, hidden=hidden, device=dev)
+    return chip_smoke.rmtpp_batch(w, B, T, 512, dev, hidden) + (w,)
+
+
+def test_config5_card_against_cpu_and_its_state(card):
+    """Config 5's component with fixed weights: the card's scan run
+    against the CPU's (near-ties only, at most 2% of lanes), and resume
+    on the card equal to the continuous run bit for bit (``h`` too)."""
+    cfg, params, adj, row, w = _rmtpp_batch(card)
+    res = chip_smoke.config5_cross(w, card, B=32, end_time=30.0,
+                                   capacity=512)
+    assert res["events_card"] > 32 * 200
+    seeds = np.arange(32)
+    full, s_full = rt.simulate_batch(cfg, params, adj, seeds,
+                                     return_state=True, device=card)
+    half = dataclasses.replace(cfg, end_time=15.0)
+    l1, st = rt.simulate_batch(half, params, adj, seeds, return_state=True,
+                               device=card)
+    l2, s2 = rt.resume(cfg, params, adj, st)
+    assert torch.equal(l1.n_events + l2.n_events, full.n_events)
+    assert torch.equal(s2.h, s_full.h) and torch.equal(s2.t_next,
+                                                       s_full.t_next)
+
+
+def test_rmtpp_fit_on_card_matches_cpu(card):
+    from redqueen_tpu_torch.models import rmtpp
+
+    taus, mask = chip_smoke.config5_data()
+    _, _, lc = rmtpp.fit(0, taus, mask, hidden=8, steps=20, device=card)
+    _, _, lp = rmtpp.fit(0, taus, mask, hidden=8, steps=20, device="cpu")
+    np.testing.assert_allclose(lc, lp, rtol=chip_smoke.FIT_RTOL)
+
+
+def test_rmtpp_stream_and_star_on_card(card):
+    from redqueen_tpu_torch.models import rmtpp
+
+    w = rmtpp.init_weights(4, hidden=8, device=card)
+    res = chip_smoke.rmtpp_stream_cross(w, card, n=64, T=50.0, cap=256)
+    assert res["events"] > 64 and res["counts_differing"] <= 1
+
+
+def test_bench_quick_on_card_names_the_card():
+    """``python -m redqueen_tpu_torch.bench --quick`` on the card: both
+    engines inside the oracle's gate, the fused one through the
+    kernel, and the card's name as ``platform``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the bench refuses to run "
+                    "without one unless --device cpu is given")
+    line = chip_smoke.bench_run(["--quick"])
+    assert line["platform"] == torch.cuda.get_device_name(0)
+    assert line["engines"]["fused"]["launches"] > 0

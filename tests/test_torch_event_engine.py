@@ -272,7 +272,9 @@ def test_rmtpp_mix_refused_with_reason():
     pb, ab = rt.stack_components([p], [a])
     with pytest.raises(ValueError, match="supports only"):
         event_engine.simulate_fused(cfg, pb, ab, np.array([0]), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    # The scan engine runs the mix once weights are attached; without
+    # them the host check names the missing weights.
+    with pytest.raises(ValueError, match="params.rmtpp is None"):
         rt.simulate_batch(cfg, pb, ab, np.array([0]), device="cpu")
 
 

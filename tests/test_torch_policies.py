@@ -21,6 +21,7 @@ from jax import random as jr
 import redqueen_tpu_torch as rt
 from redqueen_tpu.models import base as jbase
 from redqueen_tpu.models import opt as jopt
+from redqueen_tpu.models import rmtpp as _jrmtpp  # noqa: F401  (registers kind 5)
 from redqueen_tpu.ops.scan_core import init_state as jinit
 from redqueen_tpu_torch.models import base as tbase
 from redqueen_tpu_torch.models import opt as topt
@@ -41,7 +42,8 @@ def _close(got, want, rtol=tp.RTOL):
 def test_registry_has_the_five_kinds_with_the_jax_codes():
     reg = tbase.get_registry()
     jreg = jbase.get_registry()
-    assert sorted(reg) == [0, 1, 2, 3, 4] and tbase.n_kinds() == 5
+    # Six kinds since the RMTPP neural policy (kind 5) is ported.
+    assert sorted(reg) == [0, 1, 2, 3, 4, 5] and tbase.n_kinds() == 6
     for k, pd in reg.items():
         assert pd.name == jreg[k].name == tbase.KIND_NAMES[k]
         assert pd.fire_uses_key == jreg[k].fire_uses_key

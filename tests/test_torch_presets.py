@@ -100,8 +100,11 @@ def test_power_law_counts_equal_jax_and_config5_names_its_item():
     _, ct, _ = presets.build_preset("power_law", B=100, seed=5)
     _, cj, _ = jpresets.build_preset("power_law", B=100, seed=5)
     np.testing.assert_array_equal(ct, cj)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        presets.build_preset(5)
+    # Config 5 builds now (ported with the RMTPP policy): a batch bundle
+    # whose component is one RMTPP row against Poisson walls.
+    b5 = presets.build_preset(5, scale=0.2, hidden=4, train_steps=2,
+                              capacity=32, device="cpu")
+    assert b5[0] == "batch" and b5[1].present_kinds == (0, 5)
     with pytest.raises(KeyError, match="unknown preset"):
         presets.build_preset("nope")
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):

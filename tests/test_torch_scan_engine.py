@@ -177,8 +177,9 @@ def test_resume_with_budget_matches_jax():
 
 def test_slab_and_rmtpp_name_their_roadmap_items():
     """``slab=`` is ported now (Queue 1 item 3): a slabbed batch equals
-    the unslabbed one and refuses ``return_state``; RMTPP still names
-    its item."""
+    the unslabbed one and refuses ``return_state``.  RMTPP is ported too
+    (item 5): without weights both engine choices refuse it by name, and
+    with them ``auto`` runs it on the scan engine, slabbed or not."""
     _, (ct, pt, at) = tp.build_both(tp.golden, 4, 5.0, 16, 2)
     whole = rt.simulate_batch(ct, pt, at, np.arange(2), device="cpu")
     slabbed = rt.simulate_batch(ct, pt, at, np.arange(2), slab=1,
@@ -193,6 +194,15 @@ def test_slab_and_rmtpp_name_their_roadmap_items():
     cfg, p, a = gb.build(capacity=16, device="cpu")
     pb, ab = rt.stack_components([p], [a])
     for engine in ("scan", "auto"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(ValueError, match="params.rmtpp is None"):
             rt.simulate_batch(cfg, pb, ab, np.array([0]), engine=engine,
                               device="cpu")
+    from redqueen_tpu_torch.models import rmtpp
+
+    w = rmtpp.init_weights(0, hidden=cfg.rmtpp_hidden, device="cpu")
+    pb, ab = rt.stack_components([rmtpp.attach(p, w)] * 2, [a] * 2)
+    whole = rt.simulate_batch(cfg, pb, ab, np.arange(2), engine="auto",
+                              device="cpu")
+    assert whole.engine == "scan" and "rmtpp" in whole.engine_reason
+    _same_port_logs(whole, rt.simulate_batch(cfg, pb, ab, np.arange(2),
+                                             slab=1, device="cpu"))

@@ -122,11 +122,14 @@ def _port_files():
     return sorted(out)
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "pandas", "redqueen_tpu")
-# The pandas export and evaluation layer, and nothing else, import pandas
-# (the package's __init__ imports neither module).
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas",
+             "redqueen_tpu")
+# The pandas export and evaluation layer and the NumPy oracle's copy, and
+# nothing else, import pandas (the package's __init__ imports none of
+# them).
 PANDAS_MODULES = ("redqueen_tpu_torch/utils/dataframe.py",
-                  "redqueen_tpu_torch/utils/metrics_pandas.py")
+                  "redqueen_tpu_torch/utils/metrics_pandas.py",
+                  "redqueen_tpu_torch/oracle/numpy_ref.py")
 
 
 def test_port_imports_no_jax_flax_pandas_or_reference():

@@ -103,8 +103,25 @@ def test_realdata_stream_clips_and_sorts():
 
 
 def test_rmtpp_stream_names_its_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tstreams.rmtpp_stream(None, tkeys(0, 1), 0.0, 1.0, 4, 2)
+    """The RMTPP stream is ported (ROADMAP Queue 1 item 5; its parity
+    with the JAX stream is in ``test_torch_rmtpp.py``): a batch of streams
+    is each stream on its own, and a star controller without weights is
+    refused by name."""
+    from redqueen_tpu_torch.models import rmtpp
+
+    w = rmtpp.init_weights(2, hidden=4, device="cpu")
+    keys = tkeys(0, 3)
+    whole = tstreams.rmtpp_stream(w, keys, 0.0, 8.0, 16, 4)
+    for i in range(3):
+        one = tstreams.rmtpp_stream(w, keys[i], 0.0, 8.0, 16, 4)
+        assert torch.equal(one.times, whole.times[i])
+        assert int(one.n) == int(whole.n[i])
+    sb = TB.StarBuilder(n_feeds=2, end_time=5.0)
+    sb.wall_poisson(0, 1.0)
+    sb.wall_poisson(1, 1.0)
+    sb.ctrl_rmtpp(None, hidden=4)
+    with pytest.raises(ValueError, match="rmtpp weights"):
+        TB.simulate_star(*sb.build(device="cpu"), seed=0, device="cpu")
 
 
 # ---------------------------------------------------------------------------
