@@ -1377,12 +1377,6 @@ CONFIG5_NPZ = dict(B=256, end_time=100.0, capacity=2048)
 FIT_RTOL = 1e-3
 
 
-def config5_data(seed=0):
-    """Config 5's fit data: 32 sequences of 24 Exp(mean 0.7) gaps."""
-    taus = np.random.RandomState(seed).exponential(0.7, (32, 24))
-    return taus.astype(np.float32), np.ones((32, 24), bool)
-
-
 def bench_run(args=(), platform=None, timeout=BENCH_TIMEOUT_S):
     """(a) The bench as a user runs it, in its own process: its last
     stdout line, with both engines inside the oracle's gate."""
@@ -1422,37 +1416,27 @@ def bench_run(args=(), platform=None, timeout=BENCH_TIMEOUT_S):
 
 def oracle_rmtpp(weights, hidden, T, n_seeds, n_followers=10):
     """Posts and time-in-top-1 of ``oracle.numpy_ref.RMTPP`` with
-    ``weights`` (as float64) over ``n_seeds`` components, Poisson walls
-    seeded ``9000 + 100 seed + i``."""
+    ``weights`` (as float64) over ``n_seeds`` components of the bench's
+    oracle (``bench.oracle_components``)."""
+    from redqueen_tpu_torch.bench import oracle_components
     from redqueen_tpu_torch.convert import rmtpp_weights_to_jax
-    from redqueen_tpu_torch.oracle.numpy_ref import SimOpts
-    from redqueen_tpu_torch.utils import metrics_pandas as mp
 
     w64 = rt_map_weights(lambda a: np.asarray(a, np.float64),
                          rmtpp_weights_to_jax(weights))
-    posts, tops = [], []
-    for seed in range(n_seeds):
-        others = [("poisson", dict(src_id=100 + i, seed=9000 + 100 * seed + i,
-                                   rate=1.0, sink_ids=[i]))
-                  for i in range(n_followers)]
-        so = SimOpts(src_id=0, sink_ids=list(range(n_followers)),
-                     other_sources=others, end_time=T)
-        mgr = so.create_manager_with_rmtpp(seed=seed, weights=w64,
-                                           hidden=hidden)
-        mgr.run_till()
-        df = mgr.state.get_dataframe()
-        posts.append(mp.num_posts_of_src(df, 0))
-        tops.append(mp.time_in_top_k(df, 1, T, src_id=0,
-                                     sink_ids=so.sink_ids))
-    return np.asarray(posts, np.float64), np.asarray(tops, np.float64)
+    res = oracle_components(
+        n_seeds, n_followers, T, 1.0,
+        manager=lambda so, c: so.create_manager_with_rmtpp(
+            seed=c, weights=w64, hidden=hidden))
+    return res["posts"], res["top1"]
 
 
 def gate_4se(label, got, want, floor):
-    """|mean(got) - mean(want)| within max(4 sigma, floor), independent
-    seeds on both sides (the bench's rule)."""
-    se = np.sqrt(got.var() / got.size + want.var() / want.size)
-    tol = max(4.0 * se, floor)
-    d = abs(got.mean() - want.mean())
+    """The bench's 4-sigma gate (``bench.gate``) of the mean of ``got``
+    against the oracle's ``want``, independent seeds on both sides."""
+    from redqueen_tpu_torch.bench import gate
+
+    d, tol = gate(*((x.mean(), x.std(), x.size) for x in (got, want)),
+                  floor=floor)
     check(d <= tol, f"{label}: {got.mean():.4f} vs oracle {want.mean():.4f}"
                     f", |d| {d:.4f} beyond {tol:.4f}")
     return {"mean": float(got.mean()), "oracle_mean": float(want.mean()),
@@ -1461,26 +1445,24 @@ def gate_4se(label, got, want, floor):
 
 def rmtpp_batch(weights, B, end_time, capacity, dev, hidden):
     """Config 5's component with ``weights``, stacked ``B`` times on
-    ``dev``: ``(cfg, params, adj, row)``."""
-    from redqueen_tpu_torch.presets import build_preset
+    ``dev`` (``presets.batch_lanes``): ``(cfg, params, adj, row)``."""
+    from redqueen_tpu_torch.presets import batch_lanes, build_preset
 
-    _, cfg, p0, a0, row = build_preset(
-        5, weights=weights, end_time=end_time, capacity=capacity,
-        hidden=hidden, device=dev)
-    params, adj = rt.stack_components([p0] * B, [a0] * B)
-    return cfg, params, adj, row
+    bundle = build_preset(5, weights=weights, end_time=end_time,
+                          capacity=capacity, hidden=hidden, device=dev)
+    return batch_lanes(bundle, np.arange(B), dev)[:4]
 
 
 def rmtpp_run(cfg, params, adj, row, seeds, dev):
-    """Simulate and metrics, each timed to a sync: ``(log, top1 [B],
-    posts [B], simulate s, metrics s)``."""
+    """``run_preset``'s batch run, simulate and metrics each timed to a
+    sync: ``(log, top1 [B], posts [B], simulate s, metrics s)``."""
+    from redqueen_tpu_torch.presets import batch_metrics
+
     t0 = time.perf_counter()
     log = rt.simulate_batch(cfg, params, adj, seeds, device=dev)
     sync(dev)
     t1 = time.perf_counter()
-    top = rt.feed_metrics_batch(log.times, log.srcs, adj, row,
-                                cfg.end_time).mean_time_in_top_k()
-    posts = rt.num_posts(log.srcs, row)
+    top, posts, _ = batch_metrics(log, adj, row, cfg.end_time)
     sync(dev)
     return (log, top.double().cpu().numpy(), posts.double().cpu().numpy(),
             t1 - t0, time.perf_counter() - t1)
@@ -1491,6 +1473,7 @@ def config5_full(dev, kw=CONFIG5_FULL, n_seeds=CONFIG5_SEEDS,
                  oracle_seeds=CONFIG5_ORACLE_SEEDS):
     """(b) Config 5 at full width, its weights fitted on ``dev``."""
     from redqueen_tpu_torch.models import rmtpp
+    from redqueen_tpu_torch.presets import config5_data
 
     taus, mask = config5_data()
     t0 = time.perf_counter()
@@ -1541,7 +1524,8 @@ def config5_full(dev, kw=CONFIG5_FULL, n_seeds=CONFIG5_SEEDS,
     return res, weights
 
 
-def config5_cross(weights, dev, B=None, end_time=None, capacity=None):
+def config5_cross(weights, dev, B=None, end_time=None, capacity=None,
+                  tag="phase 8 (c)"):
     """(c) The same weights and seeds on the card and on the CPU."""
     c = CONFIG5_CROSS
     B, end_time = B or c["B"], end_time or c["end_time"]
@@ -1552,8 +1536,8 @@ def config5_cross(weights, dev, B=None, end_time=None, capacity=None):
     card = rt.simulate_batch(cfg, params, adj, np.arange(B), device=dev)
     cpu = rt.simulate_batch(cfg, params.to("cpu"), adj.cpu(), np.arange(B),
                             device="cpu")
-    return compare_devices("config 5", card, cpu, end_time,
-                           tag="phase 8 (c)")
+    return compare_devices(f"config 5 (hidden {hidden})", card, cpu,
+                           end_time, tag=tag)
 
 
 def rmtpp_stream_cross(weights, dev, n=256, T=100.0, cap=512):
@@ -1609,9 +1593,11 @@ def rmtpp_stream_cross(weights, dev, n=256, T=100.0, cap=512):
 
 
 def config5_npz(dev, B=None, end_time=None, capacity=None,
-                oracle_seeds=CONFIG5_ORACLE_SEEDS):
-    """(e) The committed hidden-16 weights, one run gated against the
-    oracle."""
+                oracle_seeds=CONFIG5_ORACLE_SEEDS, cross=None):
+    """(e) The committed hidden-16 weights: one run gated against the
+    oracle, and (c)'s card-against-CPU run (``cross``: its ``B``,
+    ``end_time`` and ``capacity``), which holds the hidden-16 path far
+    tighter than the oracle's spread can."""
     c = CONFIG5_NPZ
     B, end_time = B or c["B"], end_time or c["end_time"]
     capacity = capacity or c["capacity"]
@@ -1632,14 +1618,17 @@ def config5_npz(dev, B=None, end_time=None, capacity=None,
           f" vs oracle {g_posts['oracle_mean']:.3f} (tol {g_posts['tol']:.3f})"
           f"; time-in-top-1 {g_top['mean']:.4f} vs oracle "
           f"{g_top['oracle_mean']:.4f} (tol {g_top['tol']:.4f})")
+    xs = config5_cross(weights, dev, tag="phase 8 (e)", **(cross or {}))
     return {"B": B, "events": events, "simulate_s": sim_s,
-            "metrics_s": met_s, "posts": g_posts, "top1": g_top}
+            "metrics_s": met_s, "posts": g_posts, "top1": g_top,
+            "cross": xs}
 
 
 def fit_cross(card_losses, fit_steps=CONFIG5_FIT_STEPS, hidden=8):
     """(f) The CPU fit from the same initial weights as (b)'s card fit:
     the largest relative gap of the two loss curves."""
     from redqueen_tpu_torch.models import rmtpp
+    from redqueen_tpu_torch.presets import config5_data
 
     taus, mask = config5_data()
     _, _, cpu = rmtpp.fit(0, taus, mask, hidden=hidden, steps=fit_steps,

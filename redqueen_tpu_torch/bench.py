@@ -48,8 +48,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-__all__ = ["TIMED_REPS", "run_oracle", "run_engine", "gate_fields",
-           "result_line", "shapes", "main"]
+__all__ = ["TIMED_REPS", "oracle_components", "run_oracle", "run_engine",
+           "gate", "gate_fields", "result_line", "shapes", "main"]
 
 #: Timed runs per engine and oracle passes: the best of them is kept.
 TIMED_REPS = 3
@@ -79,37 +79,54 @@ def shapes(quick: bool):
         (10_000, 100.0, ORACLE_COMPS[0])
 
 
-def run_oracle(n_comps: int, n_followers: int, T: float, q: float,
-               wall_rate: float, budget_s: float = 380.0) -> Dict:
-    """The NumPy oracle on ``n_comps`` headline components: events, the
-    best seconds, and the mean, std and count of time-in-top-1."""
+def oracle_components(n_comps: int, n_followers: int, T: float,
+                      wall_rate: float, manager, q: float = 1.0) -> Dict:
+    """One pass of the NumPy oracle over ``n_comps`` components: the
+    controlled broadcaster (source 0) built by ``manager(sim_opts, c)``
+    against ``n_followers`` followers, each with one Poisson wall seeded
+    ``40_000 + 1000 c + i``.  Returns the events and, per component, the
+    broadcaster's posts and its time-in-top-1."""
     from .oracle.numpy_ref import SimOpts
     from .utils import metrics_pandas as mp
 
+    events, posts, tops = 0, [], []
+    for c in range(n_comps):
+        others = [
+            ("poisson", dict(src_id=100 + i, seed=40_000 + 1000 * c + i,
+                             rate=wall_rate, sink_ids=[i]))
+            for i in range(n_followers)]
+        so = SimOpts(src_id=0, sink_ids=list(range(n_followers)),
+                     other_sources=others, end_time=T, q=q)
+        mgr = manager(so, c)
+        mgr.run_till()
+        df = mgr.state.get_dataframe()
+        events += df["event_id"].nunique()
+        posts.append(mp.num_posts_of_src(df, 0))
+        tops.append(mp.time_in_top_k(df, 1, T, src_id=0,
+                                     sink_ids=so.sink_ids))
+    return {"events": int(events), "posts": np.asarray(posts, np.float64),
+            "top1": np.asarray(tops, np.float64)}
+
+
+def run_oracle(n_comps: int, n_followers: int, T: float, q: float,
+               wall_rate: float, budget_s: float = 380.0) -> Dict:
+    """The NumPy oracle on ``n_comps`` headline components (``Opt``
+    seeded ``c``): events, the best seconds, and the mean, std and count
+    of time-in-top-1."""
     deadline = time.monotonic() + budget_s
-    secs, events, tops = np.inf, 0, []
+    secs, run = np.inf, None
     for _ in range(TIMED_REPS):
         if not _more_reps_fit(secs, deadline):
             break
-        events, tops = 0, []
         t0 = time.perf_counter()  # host work only: nothing to wait for
-        for c in range(n_comps):
-            others = [
-                ("poisson", dict(src_id=100 + i, seed=40_000 + 1000 * c + i,
-                                 rate=wall_rate, sink_ids=[i]))
-                for i in range(n_followers)]
-            so = SimOpts(src_id=0, sink_ids=list(range(n_followers)),
-                         other_sources=others, end_time=T, q=q)
-            mgr = so.create_manager_with_opt(seed=c)
-            mgr.run_till()
-            df = mgr.state.get_dataframe()
-            events += df["event_id"].nunique()
-            tops.append(mp.time_in_top_k(df, 1, T, src_id=0,
-                                         sink_ids=so.sink_ids))
+        run = oracle_components(
+            n_comps, n_followers, T, wall_rate, q=q,
+            manager=lambda so, c: so.create_manager_with_opt(seed=c))
         secs = min(secs, time.perf_counter() - t0)
-    return {"events": int(events), "secs": float(secs),
-            "top1": float(np.mean(tops)), "top1_std": float(np.std(tops)),
-            "top1_n": len(tops), "comps": n_comps}
+    tops = run["top1"]
+    return {"events": run["events"], "secs": float(secs),
+            "top1": float(tops.mean()), "top1_std": float(tops.std()),
+            "top1_n": int(tops.size), "comps": n_comps}
 
 
 def _sync(dev: torch.device):
@@ -176,23 +193,29 @@ def run_engine(name: str, B: int, n_followers: int, T: float, q: float,
             "capacity": capacity, "max_chunks": max_chunks}
 
 
+def gate(a, b, floor: float):
+    """``(|mean_a - mean_b|, tol)`` of two independent samples, each
+    given as ``(mean, std, n)``: ``tol = max(4 sqrt(std_a^2 / n_a +
+    std_b^2 / n_b), floor)`` (the seeds are independent, so the standard
+    errors add in quadrature; the floor guards a degenerate spread on few
+    samples)."""
+    se2 = sum(std ** 2 / max(n, 1) for _, std, n in (a, b))
+    return abs(a[0] - b[0]), max(4.0 * se2 ** 0.5, floor)
+
+
 def gate_fields(res: Dict, oracle: Optional[Dict], T: float) -> Dict:
-    """The quality gate of a result: ``|engine - oracle|`` mean
-    time-in-top-1 against ``max(4 sqrt(se_e^2 + se_o^2), 0.02 T)`` (the
-    seeds are independent, so the standard errors add in quadrature; the
-    floor guards a degenerate spread on few oracle components).  All
+    """The quality gate of a result: :func:`gate` of its mean
+    time-in-top-1 against the oracle's, with the floor ``0.02 T``.  All
     None but ``top1`` without an oracle."""
     if oracle is None:
         return {"top1": res["top1"], "oracle_top1": None, "gate": None,
                 "gate_tol": None, "gate_ok": None}
-    gate = abs(res["top1"] - oracle["top1"])
-    se2 = sum(r["top1_std"] ** 2 / max(r["top1_n"], 1)
-              for r in (oracle, res))
-    tol = max(4.0 * se2 ** 0.5, 0.02 * T)
+    d, tol = gate(*((r["top1"], r["top1_std"], r["top1_n"])
+                    for r in (res, oracle)), floor=0.02 * T)
     return {"top1": round(res["top1"], 4),
             "oracle_top1": round(oracle["top1"], 4),
-            "gate": round(gate, 4), "gate_tol": round(tol, 4),
-            "gate_ok": bool(gate <= tol)}
+            "gate": round(d, 4), "gate_tol": round(tol, 4),
+            "gate_ok": bool(d <= tol)}
 
 
 def _platform(device: torch.device) -> str:

@@ -298,14 +298,15 @@ def _adam_init(params):
 def _adam_step(params, grads, state, lr: float):
     """One step of optax's ``adam(lr)``, in its order of operations."""
     count = state["count"] + 1
-    bc1 = 1.0 - torch.tensor(_B1, dtype=torch.float32) ** count
-    bc2 = 1.0 - torch.tensor(_B2, dtype=torch.float32) ** count
+    # optax's float32 bias corrections, as host scalars: no copies to the
+    # device inside the parameter loop.
+    bc1 = float(np.float32(1.0) - np.float32(_B1) ** np.float32(count))
+    bc2 = float(np.float32(1.0) - np.float32(_B2) ** np.float32(count))
     mu, nu = [], []
     for p, g, m, v in zip(params, grads, state["mu"], state["nu"]):
         m = (1 - _B1) * g + _B1 * m
         v = (1 - _B2) * (g ** 2) + _B2 * v
-        upd = (m / bc1.to(p.device)) / (torch.sqrt(v / bc2.to(p.device))
-                                        + _EPS)
+        upd = (m / bc1) / (torch.sqrt(v / bc2) + _EPS)
         p.add_(upd * (-lr))
         mu.append(m)
         nu.append(v)
@@ -386,13 +387,13 @@ def _per_event_nll(weights, taus, mask, hidden: int) -> float:
 def fit_traces(key, traces, hidden: int = 16, steps: int = 300,
                lr: float = 1e-2, holdout_frac: float = 0.25,
                ckpt_path: Optional[str] = None, ckpt_every: int = 50,
-               weights=None, device: DeviceLike = "cuda"):
+               device: DeviceLike = "cuda"):
     """Fit RMTPP to a posting corpus (a list of ascending time arrays, for
     example ``data.traces.synthetic_twitter``) with an interleaved
     held-out split: every ``round(1 / holdout_frac)``-th user is held
     out.  ``info`` scores the fitted and the initial weights on the
     held-out users (``heldout_nll`` and ``heldout_nll_init``, per event),
-    with the per-trace values.  The initial weights are ``weights`` or
+    with the per-trace values.  The initial weights are
     :func:`init_weights` from ``key``.  Returns ``(weights, losses,
     info)``."""
     from ..data.traces import gaps_from_traces
@@ -404,8 +405,7 @@ def fit_traces(key, traces, hidden: int = 16, steps: int = 300,
     hold[::stride] = True
     if hold.all() or not hold.any():
         raise ValueError(f"degenerate holdout split for {len(traces)} users")
-    w0 = init_weights(key, hidden, device=dev) if weights is None else \
-        map_weights(lambda t: torch.as_tensor(t).to(dev), weights)
+    w0 = init_weights(key, hidden, device=dev)
     w, _, losses = fit(key, taus_np[~hold], mask_np[~hold], hidden=hidden,
                        steps=steps, lr=lr, weights=w0, ckpt_path=ckpt_path,
                        ckpt_every=ckpt_every, device=dev)

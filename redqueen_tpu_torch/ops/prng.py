@@ -7,8 +7,9 @@ per-source streams (``fold_in`` for the source keys and each fire key,
 ``split`` and ``uniform``/``exponential`` inside Hawkes thinning and the
 piecewise sampler).  This module is the second of them.
 
-The layout is the one of ``jax_threefry_partitionable=True``, the default
-from jax 0.5 on.  A key is two uint32 words ``(k0, k1)`` and
+The layout is the one of ``jax_threefry_partitionable=True``, which
+jax 0.5 and later take by default.  A key is two uint32 words ``(k0, k1)``
+and
 
 - ``PRNGKey(seed)`` is ``(0, seed mod 2**32)``;
 - ``fold_in(key, d)`` is ``threefry(key; 0, d)``;

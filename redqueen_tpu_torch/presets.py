@@ -24,7 +24,8 @@ import torch
 from . import device as _device
 from .device import DeviceLike, resolve_device
 
-__all__ = ["PRESETS", "build_preset", "run_preset", "power_law_graph"]
+__all__ = ["PRESETS", "build_preset", "run_preset", "power_law_graph",
+           "config5_data", "batch_lanes", "batch_metrics"]
 
 _MESH_ITEM = "ROADMAP.md Queue 1 item 6 (mesh -> torch.distributed)"
 
@@ -111,6 +112,13 @@ def config4_replay(scale: float = 1.0, end_time: float = 100.0,
     return ("star", cfg, wall, ctrl)
 
 
+def config5_data(seed: int = 0):
+    """Config 5's fit data ``(taus, mask)``: 32 sequences of 24 Exp(mean
+    0.7) gaps from ``RandomState(seed)``, all valid."""
+    taus = np.random.RandomState(seed).exponential(0.7, (32, 24))
+    return taus.astype(np.float32), np.ones(taus.shape, bool)
+
+
 def config5_rmtpp(scale: float = 1.0, end_time: float = 100.0,
                   wall_rate: float = 1.0, hidden: int = 8,
                   train_steps: int = 120, seed: int = 0,
@@ -121,15 +129,13 @@ def config5_rmtpp(scale: float = 1.0, end_time: float = 100.0,
     seam as Opt.  Unless ``weights`` is given it trains a small model
     (``models.rmtpp.fit``, ``train_steps`` steps of Adam on ``device``)
     on 32 gap sequences of 24 Exp(mean 0.7) gaps from
-    ``RandomState(seed)``."""
+    ``RandomState(seed)`` (:func:`config5_data`)."""
     from .config import GraphBuilder
     from .models import rmtpp
 
     n_followers = _scaled(10, scale)
     if weights is None:
-        rng = np.random.RandomState(seed)
-        taus = rng.exponential(0.7, (32, 24)).astype(np.float32)
-        mask = np.ones_like(taus, bool)
+        taus, mask = config5_data(seed)
         weights, _, _ = rmtpp.fit(seed, taus, mask, hidden=hidden,
                                   steps=train_steps, device=device)
     gb = GraphBuilder(n_sinks=n_followers, end_time=end_time)
@@ -221,6 +227,41 @@ def _host(*xs):
     return [np.asarray(r) for r in red]
 
 
+def batch_lanes(bundle, seeds, device: DeviceLike = "cuda"):
+    """A batch bundle's lanes on ``device``: ``(cfg, params, adj, row,
+    seeds)`` with one seed per lane.  A stacked bundle takes one seed per
+    component or a scalar base seed; a single component is stacked once
+    per seed."""
+    from .config import stack_components
+
+    _, cfg, params, adj, row = bundle
+    dev = resolve_device(device)
+    seeds = np.asarray(seeds)
+    if params.kind.dim() == 2:
+        B = params.kind.shape[0]
+        if seeds.ndim == 0:
+            seeds = np.arange(B) + int(seeds)
+        elif len(seeds) != B:
+            raise ValueError(
+                f"batched preset needs {B} seeds (one per component) or "
+                f"a scalar base seed; got {len(seeds)}")
+    else:
+        seeds = np.atleast_1d(seeds)
+        n = len(seeds)
+        params, adj = stack_components([params] * n, [adj] * n)
+    return cfg, params.to(dev), adj.to(dev), row, seeds
+
+
+def batch_metrics(log, adj, row, end_time: float, metric_K: int = 1):
+    """Per-lane time-in-top-K of ``row``, its posts and the lane's events,
+    as tensors on the log's device (nothing is read to the host)."""
+    from .utils.metrics import feed_metrics_batch, num_posts
+
+    m = feed_metrics_batch(log.times, log.srcs, adj, row, end_time,
+                           K=metric_K)
+    return m.mean_time_in_top_k(), num_posts(log.srcs, row), log.n_events
+
+
 def run_preset(bundle, seeds, mesh=None, max_chunks: int = 256,
                metric_K: int = 1, device: DeviceLike = "cuda"):
     """Run a preset bundle over ``seeds`` on ``device`` (the card by
@@ -237,32 +278,13 @@ def run_preset(bundle, seeds, mesh=None, max_chunks: int = 256,
     dev = resolve_device(device)
     kind = bundle[0]
     if kind == "batch":
-        _, cfg, params, adj, opt_row = bundle
-        from .config import stack_components
         from .sim import simulate_batch
-        from .utils.metrics import feed_metrics_batch, num_posts
 
-        seeds = np.asarray(seeds)
-        if params.kind.dim() == 2:
-            B = params.kind.shape[0]
-            if seeds.ndim == 0:
-                seeds = np.arange(B) + int(seeds)
-            elif len(seeds) != B:
-                raise ValueError(
-                    f"batched preset needs {B} seeds (one per component) or "
-                    f"a scalar base seed; got {len(seeds)}")
-            params_b, adj_b = params, adj
-        else:
-            seeds = np.atleast_1d(seeds)
-            n = len(seeds)
-            params_b, adj_b = stack_components([params] * n, [adj] * n)
-        params_b, adj_b = params_b.to(dev), adj_b.to(dev)
+        cfg, params_b, adj_b, opt_row, seeds = batch_lanes(bundle, seeds, dev)
         log = simulate_batch(cfg, params_b, adj_b, seeds,
                              max_chunks=max_chunks, device=dev)
-        m = feed_metrics_batch(log.times, log.srcs, adj_b, opt_row,
-                               cfg.end_time, K=metric_K)
-        tops, posts, nev = _host(m.mean_time_in_top_k(),
-                                 num_posts(log.srcs, opt_row), log.n_events)
+        tops, posts, nev = _host(*batch_metrics(log, adj_b, opt_row,
+                                                cfg.end_time, metric_K))
         events = int(nev.sum())
         end_time = cfg.end_time
     elif kind == "ragged":

@@ -188,3 +188,21 @@ def test_oracle_follows_the_reference_protocol():
 def test_shapes_are_the_headline_and_quick():
     assert bench.shapes(False) == (10_000, 100.0, 32)
     assert bench.shapes(True) == (64, 20.0, 2)
+
+
+def test_gate_adds_standard_errors_in_quadrature():
+    d, tol = bench.gate((10.0, 2.0, 4), (11.0, 3.0, 9), floor=0.1)
+    assert d == 1.0 and tol == 4.0 * np.sqrt(4.0 / 4 + 9.0 / 9)
+    assert bench.gate((1.0, 0.0, 0), (1.5, 0.0, 3), floor=0.7) == (0.5, 0.7)
+
+
+def test_oracle_components_takes_any_manager():
+    """One oracle pass with the ``Opt`` manager gives ``run_oracle``'s
+    values; the posts are the broadcaster's own."""
+    got = bench.oracle_components(
+        2, 10, 20.0, 1.0,
+        manager=lambda so, c: so.create_manager_with_opt(seed=c))
+    ref = bench.run_oracle(2, 10, 20.0, 1.0, 1.0)
+    assert got["events"] == ref["events"]
+    assert float(got["top1"].mean()) == ref["top1"]
+    assert got["posts"].shape == (2,) and (got["posts"] > 0).all()

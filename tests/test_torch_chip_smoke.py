@@ -295,15 +295,18 @@ def test_phase8cdef_on_one_device(config5_small):
     d = chip_smoke.rmtpp_stream_cross(weights, "cpu", n=8, T=10.0, cap=64)
     assert d["counts_differing"] == 0 and d["max_rel"] == 0.0
     e = chip_smoke.config5_npz("cpu", B=4, end_time=10.0, capacity=64,
-                               oracle_seeds=8)
-    assert e["events"] > 0
+                               oracle_seeds=8, cross=dict(
+                                   B=4, end_time=10.0, capacity=64))
+    assert e["events"] > 0 and e["cross"]["lanes_differing"] == 0
     f = chip_smoke.fit_cross(res["losses"], fit_steps=3)
     assert f["max_rel_gap"] == 0.0
 
 
 def test_phase8f_gate_fails_on_a_diverged_fit():
-    taus, mask = chip_smoke.config5_data()
     from redqueen_tpu_torch.models import rmtpp
+    from redqueen_tpu_torch.presets import config5_data
+
+    taus, mask = config5_data()
 
     _, _, cpu = rmtpp.fit(0, taus, mask, hidden=8, steps=2, device="cpu")
     with pytest.raises(SystemExit):

@@ -369,8 +369,9 @@ def test_config5_card_against_cpu_and_its_state(card):
 
 def test_rmtpp_fit_on_card_matches_cpu(card):
     from redqueen_tpu_torch.models import rmtpp
+    from redqueen_tpu_torch.presets import config5_data
 
-    taus, mask = chip_smoke.config5_data()
+    taus, mask = config5_data()
     _, _, lc = rmtpp.fit(0, taus, mask, hidden=8, steps=20, device=card)
     _, _, lp = rmtpp.fit(0, taus, mask, hidden=8, steps=20, device="cpu")
     np.testing.assert_allclose(lc, lp, rtol=chip_smoke.FIT_RTOL)

@@ -110,3 +110,40 @@ def test_power_law_counts_equal_jax_and_config5_names_its_item():
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         presets.run_preset(("ragged", ct, {}), 0, mesh=object(),
                            device="cpu")
+
+
+def test_batch_lanes_seeds_and_metrics():
+    """``batch_lanes`` stacks a single component once per seed, takes a
+    scalar base seed for a stacked bundle and refuses a wrong count;
+    ``batch_metrics`` gives the per-lane values ``run_preset`` reports."""
+    import torch
+
+    from redqueen_tpu_torch.sim import simulate_batch
+
+    bundle = presets.build_preset(1, end_time=6.0, capacity=64,
+                                  device="cpu")
+    cfg, params, adj, row, seeds = presets.batch_lanes(bundle, [4, 9],
+                                                       "cpu")
+    assert params.kind.shape[0] == 2 and list(seeds) == [4, 9]
+    stacked = ("batch", cfg, params, adj, row)
+    assert list(presets.batch_lanes(stacked, np.array(3), "cpu")[4]) == [3, 4]
+    with pytest.raises(ValueError, match="one per component"):
+        presets.batch_lanes(stacked, [1, 2, 3], "cpu")
+    log = simulate_batch(cfg, params, adj, seeds, device="cpu")
+    top, posts, nev = presets.batch_metrics(log, adj, row, cfg.end_time)
+    out = presets.run_preset(bundle, [4, 9], device="cpu")
+    assert out["events"] == int(nev.sum())
+    assert out["per_seed_posts"] == posts.double().tolist()
+    assert out["per_seed_top_k"] == top.double().tolist()
+    assert isinstance(top, torch.Tensor) and top.shape == (2,)
+
+
+def test_config5_data_is_the_references_fit_data():
+    """Config 5's fit data: the reference preset's ``RandomState(seed)``
+    draw of 32 x 24 Exp(mean 0.7) gaps, all valid."""
+    for seed in (0, 5):
+        taus, mask = presets.config5_data(seed)
+        want = np.random.RandomState(seed).exponential(0.7, (32, 24))
+        np.testing.assert_array_equal(taus, want.astype(np.float32))
+        assert taus.dtype == np.float32 and mask.dtype == bool
+        assert mask.shape == (32, 24) and mask.all()

@@ -315,9 +315,10 @@ def test_gaps_from_traces_roundtrip_and_equal_jax():
         gaps_from_traces(traces, length=2)
 
 
-def test_fit_traces_matches_jax_heldout_nll():
+def test_fit_traces_matches_jax_heldout_nll(monkeypatch):
     """The learned-broadcasting loop on a synthetic corpus from the
-    reference's initial weights: the same split, the initial held-out
+    reference's initial weights (the port's ``init_weights`` is patched to
+    return them, as its draws are torch's): the same split, the initial held-out
     NLL within rtol 1e-5, the fitted one within 0.01 nats per event, and
     training beats the initial weights on held-out users."""
     from redqueen_tpu.data import traces as jtr
@@ -327,8 +328,10 @@ def test_fit_traces_matches_jax_heldout_nll():
     wj, wt = jax_weights(7, 8)
     _, lj, ij = JR.fit_traces(jr.PRNGKey(7), corpus, hidden=8, steps=80,
                               lr=2e-2)
-    w, lt, it = TR.fit_traces(7, corpus, hidden=8, steps=80, lr=2e-2,
-                              weights=wt, device=CPU)
+    with monkeypatch.context() as mp_:
+        mp_.setattr(TR, "init_weights", lambda key, hidden, device: wt)
+        w, lt, it = TR.fit_traces(7, corpus, hidden=8, steps=80, lr=2e-2,
+                                  device=CPU)
     for k in ("train_users", "heldout_users", "heldout_events",
               "heldout_user_indices", "heldout_per_trace_events"):
         assert it[k] == ij[k]
