@@ -19,7 +19,9 @@ points run on the card unless the caller passes ``device="cpu"``.
 The star engine (``parallel/bigf.py``: one broadcaster against a large
 follower set, no event loop), the bucketed ragged dispatch
 (``parallel/lanes.py``), the BASELINE presets (``presets.py``), sweeps
-(``sweep.py``) and the offline baseline (``baselines.py``) sit on top.
+(``sweep.py``) and the offline baseline (``baselines.py``) sit on top;
+``learn`` fits multivariate Hawkes models to event logs on the card
+(the ``hawkes_pass`` kernel) and feeds them back into control.
 
 This package imports torch and numpy only; the JAX package
 ``redqueen_tpu`` is its reference and is never imported here."""
@@ -52,6 +54,7 @@ from .convert import (
     wall_params_from_numpy,
 )
 from .device import resolve_device
+from . import learn  # noqa: E402  (the Hawkes fit: learn.fit_hawkes, ...)
 from .parallel.bigf import (
     CtrlParams,
     StarBuilder,
@@ -90,4 +93,5 @@ __all__ = [
     "run_sweep", "run_sweep_star", "offline_rates", "offline_visibility",
     "offline_schedule", "budget_matched_poisson_rate",
     "rmtpp_weights_from_jax", "rmtpp_weights_to_jax", "load_rmtpp_npz",
+    "learn",
 ]

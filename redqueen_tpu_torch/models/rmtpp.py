@@ -34,6 +34,7 @@ observed gaps with the closed-form compensator, by full-batch Adam on
 
 from __future__ import annotations
 
+import json
 from typing import Callable, Optional
 
 import numpy as np
@@ -41,6 +42,9 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..learn import ckpt as _ckpt
+from ..runtime import preempt as _preempt
+from ..runtime.supervisor import heartbeat as _heartbeat
 from ..ops.sampling import (
     rmtpp_cum_hazard,
     rmtpp_log_intensity,
@@ -65,8 +69,6 @@ __all__ = [
     "calibrate_budget",
     "sequence_nll",
 ]
-
-_CKPT_ITEM = "ROADMAP.md Queue 1 item 7 (runtime with telemetry)"
 
 #: The GRU's input projections (each with a bias) and hidden ones (only
 #: ``hn`` has a bias), by their flax names.
@@ -313,6 +315,37 @@ def _adam_step(params, grads, state, lr: float):
     return {"count": count, "mu": mu, "nu": nu}
 
 
+def _flatten(obj, leaves: list):
+    """A JSON skeleton of a nest of dicts, lists, tuples, tensors and
+    plain values, with every tensor appended to ``leaves`` and replaced
+    by its index (dict keys keep their type: an optimizer's state is
+    keyed by int)."""
+    if isinstance(obj, torch.Tensor):
+        leaves.append(obj)
+        return {"t": len(leaves) - 1}
+    if isinstance(obj, dict):
+        return {"d": [[_flatten(k, leaves), _flatten(v, leaves)]
+                      for k, v in obj.items()]}
+    if isinstance(obj, (list, tuple)):
+        return {"l" if isinstance(obj, list) else "u":
+                [_flatten(v, leaves) for v in obj]}
+    return {"v": obj}
+
+
+def _unflatten(skel, leaves):
+    """Inverse of :func:`_flatten`: ``leaves`` are tensors."""
+    (tag, val), = skel.items()
+    if tag == "t":
+        return leaves[val]
+    if tag == "d":
+        return {_unflatten(k, leaves): _unflatten(v, leaves)
+                for k, v in val}
+    if tag in ("l", "u"):
+        out = [_unflatten(v, leaves) for v in val]
+        return out if tag == "l" else tuple(out)
+    return val
+
+
 def fit(key, taus, mask, hidden: int = 16, steps: int = 300,
         lr: float = 1e-2, weights=None, opt_state=None,
         optimizer: Optional[Callable] = None,
@@ -326,32 +359,85 @@ def fit(key, taus, mask, hidden: int = 16, steps: int = 300,
     a ``torch.Generator``) seeds :func:`init_weights` when ``weights`` is
     None.  ``optimizer``, if given, is a factory ``params ->
     torch.optim.Optimizer`` used in place of Adam, and ``opt_state`` is
-    then its ``state_dict()``.  ``ckpt_path`` needs the training
-    checkpoints of the learning runtime, which are not ported yet."""
-    if ckpt_path is not None:
-        raise NotImplementedError(
-            f"fit(ckpt_path=...) resumes through learn.ckpt, "
-            f"runtime.preempt and supervisor.heartbeat, which are not "
-            f"ported yet — {_CKPT_ITEM}")
+    then its ``state_dict()``.
+
+    ``ckpt_path``: every ``ckpt_every`` steps the full training state
+    (weights, optimizer state, loss curve) lands as an enveloped
+    ``rq.learn.fit/1`` artifact (``learn.ckpt``), keyed by a fingerprint
+    of the data, the hyperparameters and the initial weights and
+    optimizer state; after each save the fit heartbeats and honors a
+    pending SIGTERM/SIGINT.  A killed fit rerun with the same arguments
+    resumes from it bit-identically; a stored state whose fingerprint or
+    structure does not match (another corpus, ``hidden``, ``lr``,
+    optimizer, or initial weights) is ignored and the fit starts over.
+    ``steps`` is a budget, not part of the fingerprint: a rerun with a
+    larger ``steps`` trains onward, one with a smaller ``steps`` returns
+    the further-trained stored state as it is."""
     dev = resolve_device(device)
     taus = torch.as_tensor(np.asarray(taus), dtype=torch.float32).to(dev)
     mask = torch.as_tensor(np.asarray(mask), dtype=torch.bool).to(dev)
     if weights is None:
         weights = init_weights(key, hidden, device=dev)
-    cell = RMTPPCell(hidden, weights=map_weights(lambda t: t.to(dev),
-                                                 weights))
+    weights = map_weights(lambda t: t.to(dev), weights)
+    if optimizer is None:
+        state = (_adam_init(list(RMTPPCell(hidden, weights=weights)
+                                 .parameters()))
+                 if opt_state is None else opt_state)
+    else:
+        state = opt_state
+
+    start, host_losses, fp = 0, [], None
+    if ckpt_path is not None:
+        leaves = []
+        skel = _flatten((weights, state), leaves)
+        fp = _ckpt.fingerprint_arrays(
+            dict(model="rmtpp", hidden=int(hidden), lr=float(lr),
+                 optimizer="custom" if optimizer is not None else "adam",
+                 init=json.dumps(skel)),
+            taus.cpu().numpy(), mask.cpu().numpy(),
+            *[t.detach().cpu().numpy() for t in leaves])
+        loaded = _ckpt.load_fit(ckpt_path, fp)
+        if loaded is not None:
+            step0, arrays, meta = loaded
+            try:
+                stored = [torch.as_tensor(arrays[f"leaf_{i:05d}"]).to(dev)
+                          for i in range(int(meta["n_leaves"]))]
+                weights, state = _unflatten(json.loads(meta["skeleton"]),
+                                            stored)
+                host_losses = list(np.asarray(arrays["curve"], np.float64))
+                start = min(int(step0), int(steps))
+            except (KeyError, ValueError, TypeError, IndexError):
+                pass  # a layout this fit cannot restore: start over
+
+    cell = RMTPPCell(hidden, weights=weights)
     params = list(cell.parameters())
     if optimizer is None:
-        state = _adam_init(params) if opt_state is None else {
-            "count": int(opt_state["count"]),
-            "mu": [m.to(dev).clone() for m in opt_state["mu"]],
-            "nu": [v.to(dev).clone() for v in opt_state["nu"]]}
+        state = {"count": int(state["count"]),
+                 "mu": [m.to(dev).clone() for m in state["mu"]],
+                 "nu": [v.to(dev).clone() for v in state["nu"]]}
     else:
         opt = optimizer(params)
-        if opt_state is not None:
-            opt.load_state_dict(opt_state)
+        if state is not None:
+            opt.load_state_dict(state)
+
+    def save(step):
+        leaves = []
+        skel = _flatten((map_weights(lambda t: t.detach(), cell.weights()),
+                         state if optimizer is None else opt.state_dict()),
+                        leaves)
+        arrays = {f"leaf_{i:05d}": t.detach().cpu().numpy()
+                  for i, t in enumerate(leaves)}
+        arrays["curve"] = np.asarray(host_losses, np.float64)
+        _ckpt.save_fit(ckpt_path, fp, step, arrays,
+                       meta=dict(model="rmtpp", hidden=int(hidden),
+                                 n_leaves=len(leaves),
+                                 skeleton=json.dumps(skel)))
+        _heartbeat()
+        _preempt.check_preempt(f"rmtpp.fit step {step}")
+
     losses = []
-    for _ in range(int(steps)):
+    last_saved = start
+    for i in range(start, int(steps)):
         loss = nll_loss(cell.weights(), taus, mask, hidden)
         grads = torch.autograd.grad(loss, params)
         if optimizer is None:
@@ -360,12 +446,20 @@ def fit(key, taus, mask, hidden: int = 16, steps: int = 300,
             for p, g in zip(params, grads):
                 p.grad = g
             opt.step()
-        # The curve stays on the device until the end: one read per fit.
+        # The curve stays on the device until a checkpoint or the end.
         losses.append(loss.detach())
+        if ckpt_path is not None and ckpt_every and (i + 1) % ckpt_every == 0:
+            host_losses.extend(torch.stack(losses).double().cpu().numpy())
+            losses = []
+            save(i + 1)
+            last_saved = i + 1
+    if losses:
+        host_losses.extend(torch.stack(losses).double().cpu().numpy())
+    if ckpt_path is not None and last_saved < int(steps):
+        save(int(steps))
     out = map_weights(lambda t: t.detach().clone(), cell.weights())
-    curve = (torch.stack(losses).double().cpu().numpy() if losses
-             else np.zeros(0, np.float64))
-    return out, (state if optimizer is None else opt.state_dict()), curve
+    return (out, (state if optimizer is None else opt.state_dict()),
+            np.asarray(host_losses, np.float64))
 
 
 def _per_trace_nll(weights, taus, mask, hidden: int):

@@ -1,9 +1,12 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
 Each ``csrc/*.cu`` file is compiled with ``nvcc`` into a shared library
-with a plain C interface on first use, cached by the content of the
-sources and flags under ``redqueen_tpu_torch/_build/``, and loaded with
-``ctypes``.
+with a plain C interface on first use (one ``nvcc`` per source, all
+started together), cached by the content of the source, the headers and
+the flags under ``redqueen_tpu_torch/_build/``, and loaded with
+``ctypes``.  Two kernels: the event kernel of the fused engine
+(``csrc/event_kernel.cu``) and the Hawkes event pass of the learn path
+(``csrc/hawkes_pass.cu``).
 Nothing here runs when the module is imported, so the CPU tests import it
 on machines without ``nvcc``.
 
@@ -28,10 +31,10 @@ import torch
 
 from .event_step import CARRY_NAMES, PARAM_NAMES, KernelSpec
 
-__all__ = ["MAX_S", "NVCC_FLAGS", "BUILD_DIR", "build", "LAUNCHES",
-           "reset_launch_counts", "check_kernel_shape", "Geometry",
-           "geometry", "launch_event_kernel",
-           "threefry_on_device"]
+__all__ = ["MAX_S", "HAWKES_MAX_D", "NVCC_FLAGS", "BUILD_DIR", "build",
+           "LAUNCHES", "reset_launch_counts", "check_kernel_shape",
+           "Geometry", "geometry", "launch_event_kernel",
+           "threefry_on_device", "launch_hawkes_pass"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -39,6 +42,10 @@ BUILD_DIR = PKG_DIR / "_build"
 
 #: Compile-time bound on sources per component (RQ_MAX_S in the kernel).
 MAX_S = 32
+
+#: The most dimensions the Hawkes pass takes (RQ_HAWKES_MAX_D): alpha and
+#: the chunk's [D, D] partial live in one block's shared memory.
+HAWKES_MAX_D = 128
 
 #: sm_90a code for Hopper.  No --use_fast_math, and --fmad=false so that
 #: no multiply-add is fused: each operation rounds as the plain version's.
@@ -48,7 +55,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: Launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else.
-LAUNCHES: Dict[str, int] = {"event_kernel": 0, "threefry": 0}
+LAUNCHES: Dict[str, int] = {"event_kernel": 0, "threefry": 0,
+                            "hawkes_pass": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: Compiler output of the last build, per source (ptxas register report).
@@ -72,21 +80,22 @@ def _nvcc() -> str:
 
 def _digest(src: Path) -> str:
     h = hashlib.sha256()
-    for f in sorted(CSRC_DIR.glob("*.cu*")):
+    for f in [src, *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(src.name.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
 def build() -> Tuple[Dict[str, Path], float]:
-    """Compile every ``csrc/*.cu`` that has no current library yet.
-    Returns ``({stem: library path}, seconds)``; raises ``RuntimeError``
-    with the compiler output when a build fails."""
+    """Compile every ``csrc/*.cu`` that has no current library yet, one
+    ``nvcc`` process per source, all started together.  Returns
+    ``({stem: library path}, seconds)``; raises ``RuntimeError`` with the
+    compiler output when a build fails."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs: Dict[str, Path] = {}
+    jobs = []
     for src in sorted(CSRC_DIR.glob("*.cu")):
         lib = BUILD_DIR / f"lib{src.stem}-{_digest(src)}.so"
         libs[src.stem] = lib
@@ -95,24 +104,37 @@ def build() -> Tuple[Dict[str, Path], float]:
         # Built under a per-process name and renamed into place, so a
         # concurrent build never loads a half-written library.
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
+        jobs.append((src, lib, tmp, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
              str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        BUILD_LOG[src.stem] = proc.stdout
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, lib, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        BUILD_LOG[src.stem] = out
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name} (rc "
-                               f"{proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, lib)
+            failed.append(f"nvcc failed on {src.name} (rc "
+                          f"{proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return libs, time.perf_counter() - t0
+
+
+def _load(stem: str) -> ctypes.CDLL:
+    lib = _LIBS.get(stem)
+    if lib is None:
+        paths, _ = build()
+        lib = ctypes.CDLL(str(paths[stem]))
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
     lib = _LIBS.get("event_kernel")
     if lib is not None:
         return lib
-    paths, _ = build()
-    lib = ctypes.CDLL(str(paths["event_kernel"]))
+    lib = _load("event_kernel")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rq_max_sources.argtypes = []
     lib.rq_max_sources.restype = ci
@@ -134,6 +156,27 @@ def _lib() -> ctypes.CDLL:
             f"kernel library bound RQ_MAX_S={lib.rq_max_sources()} "
             f"disagrees with ops.kernels MAX_S={MAX_S}")
     _LIBS["event_kernel"] = lib
+    return lib
+
+
+def _hawkes_lib() -> ctypes.CDLL:
+    lib = _LIBS.get("hawkes_pass")
+    if lib is not None:
+        return lib
+    lib = _load("hawkes_pass")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rq_hawkes_max_dims.argtypes = []
+    lib.rq_hawkes_max_dims.restype = ci
+    lib.rq_hawkes_error_string.argtypes = [ci]
+    lib.rq_hawkes_error_string.restype = ctypes.c_char_p
+    lib.rq_hawkes_pass_launch.argtypes = [vp] * 13 + [ci] * 4 + [vp]
+    lib.rq_hawkes_pass_launch.restype = ci
+    if lib.rq_hawkes_max_dims() != HAWKES_MAX_D:
+        raise RuntimeError(
+            f"kernel library bound RQ_HAWKES_MAX_D="
+            f"{lib.rq_hawkes_max_dims()} disagrees with ops.kernels "
+            f"HAWKES_MAX_D={HAWKES_MAX_D}")
+    _LIBS["hawkes_pass"] = lib
     return lib
 
 
@@ -277,3 +320,55 @@ def threefry_on_device(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
     _check(rc, "threefry")
     LAUNCHES["threefry"] += 1
     return y0, y1
+
+
+def launch_hawkes_pass(dt: torch.Tensor, dims: torch.Tensor,
+                       mask: torch.Tensor, tail: torch.Tensor,
+                       mu: torch.Tensor, alpha: torch.Tensor,
+                       beta: torch.Tensor, grad: bool = False):
+    """One launch of the Hawkes event pass on CUDA tensors: ``dt``,
+    ``tail`` f32 [C, K], ``dims`` i32 [C, K], ``mask`` bool [C, K],
+    ``mu``/``beta`` f32 [D], ``alpha`` f32 [D, D].  Returns the per-chunk
+    partials ``(ll [C], a [C, D], b [C, D, D], w [C, D], e [C, D])`` and
+    ``health`` i32 [D], as ``learn.loglik.hawkes_pass_plain`` does (stats
+    mode, or grad mode with ``grad=True``).  Raises ``ValueError`` naming
+    the limit for a ``D`` above :data:`HAWKES_MAX_D`."""
+    dev = dt.device
+    if dev.type != "cuda":
+        raise ValueError(f"launch_hawkes_pass takes CUDA tensors, got {dev}")
+    if dt.dim() != 2:
+        raise ValueError(f"dt must be [C, K], got shape {tuple(dt.shape)}")
+    C, K = dt.shape
+    D = mu.shape[0] if mu.dim() == 1 else -1
+    if not 1 <= D <= HAWKES_MAX_D:
+        raise ValueError(
+            f"the hawkes_pass kernel takes 1 to HAWKES_MAX_D="
+            f"{HAWKES_MAX_D} dimensions (alpha and the chunk's [D, D] "
+            f"partial live in one block's shared memory), got "
+            f"D={D if D > 0 else tuple(mu.shape)}")
+    f32 = torch.float32
+    for nm, t, dtype, shape in (
+            ("dt", dt, f32, (C, K)), ("dims", dims, torch.int32, (C, K)),
+            ("mask", mask, torch.bool, (C, K)), ("tail", tail, f32, (C, K)),
+            ("mu", mu, f32, (D,)), ("alpha", alpha, f32, (D, D)),
+            ("beta", beta, f32, (D,))):
+        _require(t, nm, dtype, shape, dev)
+    lib = _hawkes_lib()
+    ll = torch.empty(C, dtype=f32, device=dev)
+    a = torch.empty((C, D), dtype=f32, device=dev)
+    b = torch.empty((C, D, D), dtype=f32, device=dev)
+    w = torch.empty((C, D), dtype=f32, device=dev)
+    e = torch.empty((C, D), dtype=f32, device=dev)
+    health = torch.empty(D, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.rq_hawkes_pass_launch(
+        dt.data_ptr(), dims.data_ptr(), mask.data_ptr(), tail.data_ptr(),
+        mu.data_ptr(), alpha.data_ptr(), beta.data_ptr(), ll.data_ptr(),
+        a.data_ptr(), b.data_ptr(), w.data_ptr(), e.data_ptr(),
+        health.data_ptr(), C, K, D, 1 if grad else 0, stream)
+    if rc != 0:
+        msg = lib.rq_hawkes_error_string(rc).decode(errors="replace")
+        raise RuntimeError(
+            f"hawkes_pass launch failed: CUDA error {rc} ({msg})")
+    LAUNCHES["hawkes_pass"] += 1
+    return ll, a, b, w, e, health

@@ -1,4 +1,14 @@
 """Runtime support of the port: numerics guard, fault injection,
-telemetry and crash-consistent artifacts."""
+telemetry, crash-consistent and checksummed artifacts, preemption and
+the supervisor's heartbeat."""
 
-from . import artifacts, faultinject, numerics, telemetry  # noqa: F401
+from . import (  # noqa: F401
+    artifacts,
+    faultinject,
+    integrity,
+    numerics,
+    preempt,
+    supervisor,
+    telemetry,
+)
+from .preempt import PreemptedError, check_preempt, preemption_guard  # noqa: F401

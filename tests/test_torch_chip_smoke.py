@@ -311,3 +311,192 @@ def test_phase8f_gate_fails_on_a_diverged_fit():
     _, _, cpu = rmtpp.fit(0, taus, mask, hidden=8, steps=2, device="cpu")
     with pytest.raises(SystemExit):
         chip_smoke.fit_cross(cpu * (1 + 2e-3), fit_steps=2)
+
+
+# ---- phase 9, the learn path, rehearsed on the CPU at small sizes ----
+# On the CPU ``hawkes_pass`` runs its plain version, so the kernel-side
+# and the plain side of each comparison agree exactly; the gates
+# themselves are checked by feeding them bad inputs.
+
+
+class _HostEvent:
+    """A host stand-in for ``torch.cuda.Event`` (milliseconds between
+    two records on the host clock)."""
+
+    def __init__(self, enable_timing=False):
+        self.t = 0.0
+
+    def record(self, *a):
+        import time
+
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+@pytest.fixture
+def host_events(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+
+
+def test_phase9a_pass_parity_on_the_plain_version():
+    out = chip_smoke.pass_parity("cpu", small=(5, 300, 128),
+                                 wide=(64, 2, 64))
+    assert sorted(out) == ["d5_grad", "d5_stats", "d64_grad", "d64_stats"]
+    for r in out.values():
+        assert r["max_abs_err"] == 0.0
+    assert out["d5_stats"]["health"][0] != 0
+
+
+@pytest.mark.parametrize("bad", ["value", "health", "nan"])
+def test_phase9a_gate_fails_on_a_bad_kernel_output(monkeypatch, bad):
+    from redqueen_tpu_torch.learn import loglik
+
+    real = loglik.hawkes_pass_plain
+
+    def skewed(*a, **k):
+        out = list(real(*a, **k))
+        if bad == "value":
+            out[2] = out[2] * (1 + 3 * chip_smoke.PASS_RTOL)
+        elif bad == "health":
+            out[5] = out[5] | 1
+        else:
+            out[0] = out[0] + float("nan")
+        return tuple(out)
+
+    monkeypatch.setattr(loglik, "hawkes_pass", skewed)
+    ch = chip_smoke.pass_stream(5, 300, 128, seed=5)
+    with pytest.raises(SystemExit):
+        chip_smoke.pass_cross("bad", *ch, "cpu", grad=False)
+
+
+SMALL_WORLD = dict(end_time=200.0, capacity=1024, seed=7)
+
+
+@pytest.fixture(scope="module")
+def recovered():
+    """Phase 9 (b) on the CPU with T cut from 600 to 200: both solvers at
+    their full iteration counts, "card" and CPU the same device."""
+    return chip_smoke.recover("cpu", world=SMALL_WORLD)
+
+
+def test_phase9b_recover_gates_pass(recovered):
+    r = recovered
+    assert r["n_events"] > 300 and r["launches"] == 0
+    for solver in ("em", "fw"):
+        s = r[solver]
+        assert s["iters"] <= chip_smoke.RECOVER_ITERS[solver]
+        assert all(v == 0.0 for v in s["card_vs_cpu"].values())
+        for k, tol in chip_smoke.RECOVER_TOLERANCES.items():
+            assert s["errors"][k] <= tol
+    assert r["fw"]["sweeps"] == r["fw"]["iters"] + 30
+
+
+def _fit(**kw):
+    from redqueen_tpu_torch.learn.hawkes_mle import HawkesFit
+
+    f = HawkesFit(mu=chip_smoke.WORLD_MU.copy(),
+                  alpha=np.diag(chip_smoke.WORLD_ALPHA),
+                  beta=chip_smoke.WORLD_BETA.copy(),
+                  health=np.zeros(3, np.uint32), loglik=np.zeros(3),
+                  final_loglik=-100.0, converged=True, n_iter=3,
+                  solver="em", n_events=10, n_dims=3, t_end=1.0,
+                  t_start=0.0)
+    return f._replace(**kw)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(health=np.array([0, 2, 0], np.uint32)),
+    dict(mu=chip_smoke.WORLD_MU * 1.5),
+    dict(beta=chip_smoke.WORLD_BETA * 1.7),
+    dict(alpha=np.diag(chip_smoke.WORLD_ALPHA) + 0.4 * np.eye(3)),
+    dict(final_loglik=-101.5)])
+def test_phase9b_recover_gate_fails(bad):
+    chip_smoke.recover_check("ok", _fit(), -100.0)
+    with pytest.raises(SystemExit):
+        chip_smoke.recover_check("bad", _fit(**bad), -100.0)
+
+
+@pytest.mark.parametrize("field,scale", [("mu", 1.01), ("beta", 0.99),
+                                         ("alpha", 1.01),
+                                         ("final_loglik", 1.001)])
+def test_phase9b_card_against_cpu_gate_fails(field, scale):
+    good = _fit()
+    chip_smoke.fits_agree("ok", good, good)
+    with pytest.raises(SystemExit):
+        chip_smoke.fits_agree("bad", _fit(**{field: getattr(good, field)
+                                             * scale}), good)
+
+
+SMALL_CORPUS = dict(seed=7, n_users=400, end_time=20.0, mean_rate=1.0,
+                    max_len=64, n_dims=8)
+
+
+def _reference_corpus_shape():
+    """Rows and chunk shape of SMALL_CORPUS through the JAX package's
+    own pipeline (its synthetic_twitter, from_traces, chunk_events)."""
+    from redqueen_tpu.data import synthetic_twitter
+    from redqueen_tpu.learn import ingest
+
+    c = SMALL_CORPUS
+    tr = synthetic_twitter(c["seed"], c["n_users"], c["end_time"],
+                           mean_rate=c["mean_rate"], max_len=c["max_len"])
+    ch = ingest.chunk_events(ingest.from_traces(
+        tr, n_dims=c["n_dims"], assign="hash", t_end=c["end_time"]))
+    return ch.n_events, tuple(ch.dt.shape)
+
+
+@pytest.fixture(scope="module")
+def corpus_small():
+    rows, shape = _reference_corpus_shape()
+    return chip_smoke.corpus_fit("cpu", corpus=SMALL_CORPUS, rows=rows,
+                                 chunk_shape=shape), rows
+
+
+def test_phase9c_corpus_fit_and_pass_checks(corpus_small, host_events):
+    (res, ch, fit), rows = corpus_small
+    assert res["rows"] == rows and res["launches"] == 0
+    assert len(res["walls_s"]) == 3 and res["events_per_s_fitted"] > 0
+    assert len(res["curve"]) == 3
+    checks = chip_smoke.corpus_pass_checks(ch, fit, "cpu", n_compare=2)
+    assert checks["responsibility_gap"] <= 1e-4 * rows
+    assert checks["cross"]["max_abs_err"] == 0.0
+    b = checks["bound"]
+    assert b["ops"] == rows * 8 * 13  # the events the run has, D = 8
+    assert b["bound_ms"] == max(b["bytes_ms"], b["ops_ms"])
+    assert b["bound_by"] == ("bytes" if b["bytes_ms"] >= b["ops_ms"]
+                             else "operations")
+
+
+@pytest.mark.parametrize("bad", ["rows", "shape", "curve", "health"])
+def test_phase9c_corpus_gates_fail(monkeypatch, bad):
+    rows, shape = _reference_corpus_shape()
+    if bad == "rows":
+        rows += 1
+    elif bad == "shape":
+        shape = (shape[0] * 2, shape[1])
+    else:
+        real = rt.learn.fit_hawkes
+
+        def skewed(*a, **k):
+            f = real(*a, **k)
+            if bad == "curve":
+                return f._replace(loglik=f.loglik - np.arange(
+                    len(f.loglik)) * 0.01 * abs(f.loglik[-1]))
+            return f._replace(health=f.health | 2)
+
+        monkeypatch.setattr(rt.learn, "fit_hawkes", skewed)
+    with pytest.raises(SystemExit):
+        chip_smoke.corpus_fit("cpu", corpus=SMALL_CORPUS, rows=rows,
+                              chunk_shape=shape)
+
+
+def test_phase9c_responsibility_identity_fails_when_broken():
+    n = 1000
+    ok = (None, torch.full((2, 4), 25.0), torch.full((2, 4, 4), 25.0))
+    chip_smoke.responsibilities_identity(ok, n)
+    with pytest.raises(SystemExit):
+        chip_smoke.responsibilities_identity(
+            (None, ok[1], ok[2] * 1.001), n)

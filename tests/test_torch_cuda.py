@@ -6,10 +6,12 @@ runs where the port runs:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
-Tolerance: none.  The kernel is built without fast math and without
-fused multiply-adds and does each operation in the plain version's
-order, so ``srcs``, ``n_events``, health words, the whole carry and
-``times`` are held bit-identical on every lane of every mix."""
+Tolerance for the event kernel: none.  The kernel is built without fast
+math and without fused multiply-adds and does each operation in the
+plain version's order, so ``srcs``, ``n_events``, health words, the
+whole carry and ``times`` are held bit-identical on every lane of every
+mix.  The Hawkes pass (``csrc/hawkes_pass.cu``) has its tolerance where
+its tests are, below."""
 
 import dataclasses
 
@@ -395,3 +397,92 @@ def test_bench_quick_on_card_names_the_card():
     line = chip_smoke.bench_run(["--quick"])
     assert line["platform"] == torch.cuda.get_device_name(0)
     assert line["engines"]["fused"]["launches"] > 0
+
+
+# ---- the learn path: the hawkes_pass kernel and the fits on the card ----
+# Tolerance (stated in chip_smoke): every per-chunk output of the kernel
+# within chip_smoke.PASS_RTOL (1e-4) of its largest magnitude against the
+# plain version on the same tensors (expf/logf ulps and the order of the
+# sum over dimensions), health equal; a resumed fit bit-identical to the
+# uninterrupted one (the pass sums in a fixed order).
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["stats", "grad"])
+@pytest.mark.parametrize("D,n,K", [(5, 3000, 1024), (64, 3840, 512),
+                                   (33, 700, 100)])
+def test_hawkes_pass_matches_plain_on_card(card, grad, D, n, K):
+    ch, mu, alpha, beta = chip_smoke.pass_stream(D, n, K, seed=D)
+    before = kernels.LAUNCHES["hawkes_pass"]
+    out = chip_smoke.pass_cross(f"D={D}", ch, mu, alpha, beta, card, grad)
+    assert kernels.LAUNCHES["hawkes_pass"] == before + 1
+    assert out["health"][0] != 0 and not any(out["health"][1:])
+
+
+def test_hawkes_pass_is_deterministic_on_card(card):
+    from redqueen_tpu_torch.learn import loglik
+
+    ch, mu, alpha, beta = chip_smoke.pass_stream(16, 5000, 512, seed=1)
+    args = chip_smoke.pass_inputs(ch, mu, alpha, beta, card)
+    a = loglik.hawkes_pass(*args)
+    b = loglik.hawkes_pass(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_hawkes_wrapper_refuses_what_the_kernel_does_not_take(card):
+    D = kernels.HAWKES_MAX_D + 1
+    ch, mu, alpha, beta = chip_smoke.pass_stream(D, 100, 64, seed=0)
+    args = chip_smoke.pass_inputs(ch, mu, alpha, beta, card)
+    with pytest.raises(ValueError, match="HAWKES_MAX_D=128"):
+        kernels.launch_hawkes_pass(*args)
+    ch, mu, alpha, beta = chip_smoke.pass_stream(4, 100, 64, seed=0)
+    args = list(chip_smoke.pass_inputs(ch, mu, alpha, beta, card))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.launch_hawkes_pass(*[a.cpu() for a in args])
+    bad = list(args)
+    bad[1] = bad[1].long()
+    with pytest.raises(ValueError, match="dims has dtype"):
+        kernels.launch_hawkes_pass(*bad)
+    bad = list(args)
+    bad[5] = bad[5][:, :3].contiguous()
+    with pytest.raises(ValueError, match="alpha has shape"):
+        kernels.launch_hawkes_pass(*bad)
+
+
+@pytest.mark.parametrize("solver", ["em", "fw"])
+def test_fit_resume_bit_identical_on_card(card, tmp_path, solver):
+    rng = np.random.RandomState(5)
+    times = np.sort(rng.uniform(0, 100, 400))
+    s = rt.learn.ingest.make_stream(times, rng.randint(0, 2, 400), 2,
+                                    t_end=100.0)
+    p = str(tmp_path / "fit.npz")
+    kw = dict(solver=solver, tol=0.0, sync_every=4, ckpt_every=8,
+              fw_beta_warmup=4, device=card)
+    rt.learn.fit_hawkes(s, max_iters=16, ckpt_path=p, **kw)
+    before = kernels.LAUNCHES["hawkes_pass"]
+    fit_b = rt.learn.fit_hawkes(s, max_iters=40, ckpt_path=p, **kw)
+    # the resumed 24 iterations and the final score, one launch each
+    # (a resumed FW fit also computes G once)
+    assert kernels.LAUNCHES["hawkes_pass"] - before == 24 + 1 + (
+        solver == "fw")
+    fit_c = rt.learn.fit_hawkes(s, max_iters=40, **kw)
+    for f in ("mu", "alpha", "beta", "loglik"):
+        np.testing.assert_array_equal(getattr(fit_b, f), getattr(fit_c, f))
+    cpu = rt.learn.fit_hawkes(s, max_iters=40, **dict(kw, device="cpu"))
+    np.testing.assert_allclose(fit_c.loglik, cpu.loglik, rtol=1e-5)
+
+
+def test_hawkes_loglik_on_card_matches_cpu(card):
+    ch, mu, alpha, beta = chip_smoke.pass_stream(3, 2000, 4096, seed=2,
+                                                 degenerate=False)
+    a = rt.learn.hawkes_loglik(ch, mu, alpha, beta, device=card)
+    b = rt.learn.hawkes_loglik(ch, mu, alpha, beta, device="cpu")
+    np.testing.assert_allclose(a.loglik, b.loglik, rtol=1e-5)
+    np.testing.assert_array_equal(a.health, b.health)
+    s = rt.learn.ingest.make_stream(np.sort(np.random.RandomState(0)
+                                            .uniform(0, 10, 50)),
+                                    np.zeros(50, int), 1, t_end=10.0)
+    np.testing.assert_allclose(
+        rt.learn.holdout_nll(s, [1.0], [[0.2]], [1.0], device=card),
+        rt.learn.holdout_nll(s, [1.0], [[0.2]], [1.0], device="cpu"),
+        rtol=1e-5)

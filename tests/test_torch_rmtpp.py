@@ -257,10 +257,10 @@ def test_fit_curve_matches_optax_from_the_same_weights():
     assert state["count"] == 120 and lt[-1] < lt[0]
 
 
-def test_fit_resumes_from_checkpointed_state():
-    """Training goes on from returned ``weights``/``opt_state``; the
-    checkpointed resume (``ckpt_path=``) needs the learning runtime and
-    names its item."""
+def test_fit_resumes_from_checkpointed_state(tmp_path):
+    """Training goes on from returned ``weights``/``opt_state``, and from
+    a ``ckpt_path=`` checkpoint, where the resumed curve is the
+    uninterrupted one bit for bit."""
     rng = np.random.RandomState(1)
     taus = rng.exponential(0.5, (16, 32))
     mask = np.ones((16, 32), bool)
@@ -270,8 +270,13 @@ def test_fit_resumes_from_checkpointed_state():
     assert l2[-1] <= l1[0] and opt2["count"] == 100
     w3, _, l3 = TR.fit(4, taus, mask, hidden=8, steps=100, device=CPU)
     np.testing.assert_allclose(np.concatenate([l1, l2]), l3, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TR.fit(4, taus, mask, hidden=8, steps=2, ckpt_path="x", device=CPU)
+    ck = str(tmp_path / "fit.npz")
+    TR.fit(4, taus, mask, hidden=8, steps=50, ckpt_path=ck, ckpt_every=25,
+           device=CPU)
+    _, opt4, l4 = TR.fit(4, taus, mask, hidden=8, steps=100, ckpt_path=ck,
+                         ckpt_every=25, device=CPU)
+    np.testing.assert_array_equal(l4, l3)
+    assert opt4["count"] == 100
 
 
 def test_fit_takes_a_torch_optimizer_factory():

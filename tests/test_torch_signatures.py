@@ -17,11 +17,17 @@ import torch
 
 import redqueen_tpu as J
 import redqueen_tpu_torch as rt
+from redqueen_tpu import learn as jlearn
 from redqueen_tpu import sim as jsim
+from redqueen_tpu.learn import ingest as jingest
+from redqueen_tpu.models import rmtpp as jrmtpp
 from redqueen_tpu.ops import sampling as jsampling
 from redqueen_tpu.ops import scan_core as jscan
 from redqueen_tpu.parallel import lanes as jlanes
+from redqueen_tpu_torch import learn as tlearn
 from redqueen_tpu_torch import sim as tsim
+from redqueen_tpu_torch.learn import ingest as tingest
+from redqueen_tpu_torch.models import rmtpp as trmtpp
 from redqueen_tpu_torch.ops import prng
 from redqueen_tpu_torch.ops import sampling as tsampling
 from redqueen_tpu_torch.ops import scan_core as tscan
@@ -41,7 +47,19 @@ PAIRS = {
     "simulate_slabbed": (jlanes.simulate_slabbed, tlanes.simulate_slabbed),
     "rmtpp_next_delta": (jsampling.rmtpp_next_delta,
                          tsampling.rmtpp_next_delta),
+    "rmtpp.fit": (jrmtpp.fit, trmtpp.fit),
+    "ingest.make_stream": (jingest.make_stream, tingest.make_stream),
 }
+# The learn package's public functions (the port adds ``device`` after
+# the reference's parameters where a function runs passes).
+PAIRS.update({f"learn.{n}": (getattr(jlearn, n), getattr(tlearn, n))
+              for n in ("fit_hawkes", "hawkes_loglik", "holdout_nll",
+                        "chunk_events", "from_event_log", "from_traces",
+                        "from_journal", "builder_params",
+                        "cross_excitation_mass", "add_fit_walls",
+                        "control_component", "control_cost",
+                        "stationary_rates", "fit_s_sink",
+                        "simulate_cross_exciting")})
 
 
 @pytest.mark.parametrize("name", sorted(PAIRS))
