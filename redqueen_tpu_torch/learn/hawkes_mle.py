@@ -67,6 +67,7 @@ from .loglik import (
     DeviceEvents,
     _censored_mass,
     _compensator,
+    _compensator_G,
     _f32,
     _ll_events_fn,
     _score,
@@ -470,10 +471,7 @@ def _run_fw(fx, counts64, D, params, start_it, max_iters, tol, rho,
             mu_np, alpha_np, beta_np, counts64, fx.span, bits)
     beta = _f32(beta_np, dev)
     mu = _f32(mu_np, dev)
-    # G at the fixed decay, from one pass (the censored mass rides the
-    # pass; its other statistics are not needed here).
-    G = _censored_mass(_stream_pass(fx.ev, mu, _f32(alpha_np, dev),
-                                    beta).E, fx.counts, beta)
+    G = _compensator_G(fx.ev, fx.counts, beta)
     mu_max = _f32(mu_max_scale * (counts64 + 1.0) / max(fx.span, 1e-300),
                   dev)
     # Branching-ratio iterate, projected into the feasible simplex (the

@@ -240,6 +240,19 @@ def _censored_mass(E, counts, beta):
     return safe_div(torch.clamp(counts - E, min=0.0), beta, when_zero=0.0)
 
 
+def _compensator_G(ev: DeviceEvents, counts, beta):
+    """``G_j`` over a device stream at ``beta`` alone: one pass for
+    ``E`` (which depends on the times and ``beta`` only, so the pass
+    runs at ``mu = alpha = 0``), then :func:`_censored_mass`.
+    ``integral_0^T lambda_i`` then equals ``mu_i T + sum_j alpha_ij
+    G_j``."""
+    D = beta.shape[0]
+    zero = torch.zeros(D, dtype=beta.dtype, device=beta.device)
+    E = _stream_pass(ev, zero, torch.zeros((D, D), dtype=beta.dtype,
+                                           device=beta.device), beta).E
+    return _censored_mass(E, counts, beta)
+
+
 class _LLEvents(torch.autograd.Function):
     """``sum_k m_k safe_log(lambda_k)`` with its exact gradient in
     ``(mu, alpha)`` from one grad-mode pass; ``beta`` gets none, as in

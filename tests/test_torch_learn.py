@@ -220,7 +220,10 @@ def port_pass(ch, mu, alpha, beta):
     ev = tloglik.to_device(ch, CPU)
     mu, alpha, beta = (torch.from_numpy(x) for x in f32(mu, alpha, beta))
     st = tloglik._stream_pass(ev, mu, alpha, beta)
-    G = tloglik._censored_mass(st.E, tloglik._f32(ch.counts, CPU), beta)
+    counts = tloglik._f32(ch.counts, CPU)
+    G = tloglik._censored_mass(st.E, counts, beta)
+    # E depends on the times and beta only
+    assert torch.equal(tloglik._compensator_G(ev, counts, beta), G)
     return [t.numpy() for t in (st.ll, st.s0, st.S, st.W, st.health, G)]
 
 
