@@ -29,6 +29,8 @@ and its exact gradient in ``(mu, alpha)``; in both the censored-mass sum
 health word.  On a CUDA tensor it launches the hand-written kernel
 ``csrc/hawkes_pass.cu`` (counted in ``ops.kernels.LAUNCHES``); on a CPU
 tensor it runs :func:`hawkes_pass_plain`, its plain PyTorch version.
+The kernel splits each chunk into segments and composes their carries
+(:func:`hawkes_carry_plain` is that composition written plainly).
 
 **Fixed summation order.**  The reference sums ``E`` with
 ``jax.ops.segment_sum``; ``index_add_`` on the card sums with float
@@ -64,7 +66,8 @@ from ..runtime.numerics import (
 from .ingest import ChunkedEvents, EventStream, chunk_events
 
 __all__ = ["hawkes_loglik", "LoglikResult", "hawkes_pass",
-           "hawkes_pass_plain", "DeviceEvents", "to_device"]
+           "hawkes_pass_plain", "hawkes_carry", "hawkes_carry_plain",
+           "DeviceEvents", "to_device"]
 
 
 class LoglikResult(NamedTuple):
@@ -194,6 +197,105 @@ def hawkes_pass_plain(dt, dims, mask, tail, mu, alpha, beta,
         Es.append(zD.index_add(0, dm, e))
     return (torch.stack(lls), torch.stack(As), torch.stack(Bs),
             torch.stack(Ws), torch.stack(Es), health)
+
+
+def _fold(P, dR, dQ, span, R, Q, grad: bool):
+    """R and Q carried through one summary ``(P, dR, dQ, span)`` of a run
+    of events: ``R' = P R + dR``, ``Q' = P (Q + span R) + dQ``, exact in
+    real arithmetic (the homogeneous solution of the recursion is
+    ``e^{-beta (t - t0)} (Q + (t - t0) R)``).  ``Q`` stays as it is in
+    grad mode."""
+    if not grad:
+        Q = P * (Q + span * R) + dQ
+    return P * R + dR, Q
+
+
+def hawkes_carry_plain(dt, dims, mask, beta, segments: int,
+                       grad: bool = False):
+    """The plain PyTorch version of the ``hawkes_pass`` kernel's phases
+    (A) and (B): ``R`` and ``Q`` at the start of every segment, ``(r_in,
+    q_in)`` f32 [C, W, D] with ``W = segments`` segments a chunk of
+    ``L = ceil(K / W)`` events each (the last one shorter, some empty
+    when K is small); ``q_in`` is zero in grad mode.
+
+    (A) every segment walked from a zero state through the decay
+    recursion alone (all segments at once, one event of each a step),
+    giving ``P`` (the product of its decays in event order), ``dR``,
+    ``dQ`` and ``span`` (its sum of ``dt``); each chunk's segments folded
+    in order into the chunk's summary.  (B) the chunk summaries folded in
+    order from zero (``R_in`` and ``Q_in`` of every chunk), then each
+    chunk's ``R_in``/``Q_in`` through its segments in order.  Every fold
+    is :func:`_fold`, in the kernel's order."""
+    C, K = dt.shape
+    D = beta.shape[0]
+    W = int(segments)
+    L = -(-K // W)
+    dev, f32 = dt.device, torch.float32
+    # Every segment as a row of L events; the places past K are padding
+    # (dt 0, no mask), an exact no-op of the recursion.
+    x = torch.zeros((C, W * L), dtype=f32, device=dev)
+    i = torch.zeros((C, W * L), dtype=torch.long, device=dev)
+    m = torch.zeros((C, W * L), dtype=f32, device=dev)
+    x[:, :K] = dt
+    i[:, :K] = dims.long().clamp(0, D - 1)
+    m[:, :K] = mask.to(f32)
+    x, i, m = (t.reshape(C * W, L) for t in (x, i, m))
+    negb = -beta
+    rows = torch.arange(C * W, device=dev)
+    P = torch.ones((C * W, D), dtype=f32, device=dev)
+    R = torch.zeros((C * W, D), dtype=f32, device=dev)
+    Q = torch.zeros((C * W, D), dtype=f32, device=dev)
+    span = torch.zeros(C * W, dtype=f32, device=dev)
+    for k in range(L):
+        xk = x[:, k]
+        d = safe_exp(negb[None, :] * xk[:, None])
+        if not grad:
+            Q = d * (Q + xk[:, None] * R)
+        R = d * R
+        P = P * d
+        R[rows, i[:, k]] += m[:, k]
+        span = span + xk
+    sP, sR, sQ = (t.reshape(C, W, D) for t in (P, R, Q))
+    span = span.reshape(C, W, 1)
+    cP = torch.ones((C, D), dtype=f32, device=dev)
+    cR = torch.zeros((C, D), dtype=f32, device=dev)
+    cQ = torch.zeros((C, D), dtype=f32, device=dev)
+    csp = torch.zeros((C, 1), dtype=f32, device=dev)
+    for s in range(W):
+        cR, cQ = _fold(sP[:, s], sR[:, s], sQ[:, s], span[:, s], cR, cQ,
+                       grad)
+        cP = cP * sP[:, s]
+        csp = csp + span[:, s]
+    R_c = torch.empty((C, D), dtype=f32, device=dev)
+    Q_c = torch.zeros((C, D), dtype=f32, device=dev)
+    R = torch.zeros(D, dtype=f32, device=dev)
+    Q = torch.zeros(D, dtype=f32, device=dev)
+    for c in range(C):
+        R_c[c] = R
+        Q_c[c] = Q
+        R, Q = _fold(cP[c], cR[c], cQ[c], csp[c], R, Q, grad)
+    r_in = torch.empty((C, W, D), dtype=f32, device=dev)
+    q_in = torch.empty((C, W, D), dtype=f32, device=dev)
+    R, Q = R_c, Q_c
+    for s in range(W):
+        r_in[:, s] = R
+        q_in[:, s] = Q
+        R, Q = _fold(sP[:, s], sR[:, s], sQ[:, s], span[:, s], R, Q, grad)
+    return r_in, q_in
+
+
+def hawkes_carry(dt, dims, mask, beta, segments: int, grad: bool = False):
+    """The carries at every segment start, ``segments`` segments a chunk
+    (:func:`hawkes_carry_plain`): the kernel's phases (A) and (B) for CUDA
+    tensors (``ops.kernels.launch_hawkes_carry``; the pass itself uses
+    ``ops.kernels.hawkes_segments(D)``), the plain version for CPU
+    tensors."""
+    if dt.device.type == "cuda":
+        from ..ops import kernels
+
+        return kernels.launch_hawkes_carry(dt, dims, mask, beta,
+                                           segments=segments, grad=grad)
+    return hawkes_carry_plain(dt, dims, mask, beta, segments, grad=grad)
 
 
 def hawkes_pass(dt, dims, mask, tail, mu, alpha, beta, grad: bool = False):

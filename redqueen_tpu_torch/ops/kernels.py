@@ -34,7 +34,8 @@ from .event_step import CARRY_NAMES, PARAM_NAMES, KernelSpec
 __all__ = ["MAX_S", "HAWKES_MAX_D", "NVCC_FLAGS", "BUILD_DIR", "build",
            "LAUNCHES", "reset_launch_counts", "check_kernel_shape",
            "Geometry", "geometry", "launch_event_kernel",
-           "threefry_on_device", "launch_hawkes_pass"]
+           "threefry_on_device", "hawkes_segments", "launch_hawkes_pass",
+           "launch_hawkes_carry"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -43,8 +44,8 @@ BUILD_DIR = PKG_DIR / "_build"
 #: Compile-time bound on sources per component (RQ_MAX_S in the kernel).
 MAX_S = 32
 
-#: The most dimensions the Hawkes pass takes (RQ_HAWKES_MAX_D): alpha and
-#: the chunk's [D, D] partial live in one block's shared memory.
+#: The most dimensions the Hawkes pass takes (RQ_HAWKES_MAX_D): each
+#: warp's [D, D] partial lives in its block's shared memory.
 HAWKES_MAX_D = 128
 
 #: sm_90a code for Hopper.  No --use_fast_math, and --fmad=false so that
@@ -56,7 +57,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else.
 LAUNCHES: Dict[str, int] = {"event_kernel": 0, "threefry": 0,
-                            "hawkes_pass": 0}
+                            "hawkes_pass": 0, "hawkes_carry": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: Compiler output of the last build, per source (ptxas register report).
@@ -169,8 +170,15 @@ def _hawkes_lib() -> ctypes.CDLL:
     lib.rq_hawkes_max_dims.restype = ci
     lib.rq_hawkes_error_string.argtypes = [ci]
     lib.rq_hawkes_error_string.restype = ctypes.c_char_p
-    lib.rq_hawkes_pass_launch.argtypes = [vp] * 13 + [ci] * 4 + [vp]
+    lib.rq_hawkes_pass_launch.argtypes = [vp] * 13 + [ci] * 4 + [vp, vp]
     lib.rq_hawkes_pass_launch.restype = ci
+    lib.rq_hawkes_carry_launch.argtypes = [vp] * 6 + [ci] * 5 + [vp, vp]
+    lib.rq_hawkes_carry_launch.restype = ci
+    for fn in (lib.rq_hawkes_segments, lib.rq_hawkes_max_segments):
+        fn.argtypes = [ci]
+        fn.restype = ci
+    lib.rq_hawkes_workspace_floats.argtypes = [ci, ci, ci]
+    lib.rq_hawkes_workspace_floats.restype = ctypes.c_longlong
     if lib.rq_hawkes_max_dims() != HAWKES_MAX_D:
         raise RuntimeError(
             f"kernel library bound RQ_HAWKES_MAX_D="
@@ -322,53 +330,109 @@ def threefry_on_device(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
     return y0, y1
 
 
+def hawkes_segments(D: int) -> int:
+    """The segments a chunk (warps a block) the Hawkes pass uses at ``D``
+    dimensions, as the kernel's library chooses them (building it on
+    first use)."""
+    return _hawkes_lib().rq_hawkes_segments(D)
+
+
+def _hawkes_inputs(fn: str, named, by: torch.Tensor):
+    """Check the stream's and the parameters' tensors for ``fn``; ``D``
+    is ``by``'s length.  Returns ``(C, K, D)``."""
+    dt = named[0][1]
+    dev = dt.device
+    if dev.type != "cuda":
+        raise ValueError(f"{fn} takes CUDA tensors, got {dev}")
+    if dt.dim() != 2:
+        raise ValueError(f"dt must be [C, K], got shape {tuple(dt.shape)}")
+    C, K = dt.shape
+    D = by.shape[0] if by.dim() == 1 else -1
+    if not 1 <= D <= HAWKES_MAX_D:
+        raise ValueError(
+            f"the hawkes_pass kernel takes 1 to HAWKES_MAX_D="
+            f"{HAWKES_MAX_D} dimensions (each warp's [D, D] partial lives "
+            f"in its block's shared memory), got "
+            f"D={D if D > 0 else tuple(by.shape)}")
+    f32 = torch.float32
+    want = {"dt": (f32, (C, K)), "dims": (torch.int32, (C, K)),
+            "mask": (torch.bool, (C, K)), "tail": (f32, (C, K)),
+            "mu": (f32, (D,)), "alpha": (f32, (D, D)), "beta": (f32, (D,))}
+    for nm, t in named:
+        _require(t, nm, *want[nm], dev)
+    return C, K, D
+
+
+def _hawkes_check(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.rq_hawkes_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
 def launch_hawkes_pass(dt: torch.Tensor, dims: torch.Tensor,
                        mask: torch.Tensor, tail: torch.Tensor,
                        mu: torch.Tensor, alpha: torch.Tensor,
                        beta: torch.Tensor, grad: bool = False):
-    """One launch of the Hawkes event pass on CUDA tensors: ``dt``,
+    """One pass of the Hawkes event kernel on CUDA tensors: ``dt``,
     ``tail`` f32 [C, K], ``dims`` i32 [C, K], ``mask`` bool [C, K],
     ``mu``/``beta`` f32 [D], ``alpha`` f32 [D, D].  Returns the per-chunk
     partials ``(ll [C], a [C, D], b [C, D, D], w [C, D], e [C, D])`` and
     ``health`` i32 [D], as ``learn.loglik.hawkes_pass_plain`` does (stats
-    mode, or grad mode with ``grad=True``).  Raises ``ValueError`` naming
-    the limit for a ``D`` above :data:`HAWKES_MAX_D`."""
-    dev = dt.device
-    if dev.type != "cuda":
-        raise ValueError(f"launch_hawkes_pass takes CUDA tensors, got {dev}")
-    if dt.dim() != 2:
-        raise ValueError(f"dt must be [C, K], got shape {tuple(dt.shape)}")
-    C, K = dt.shape
-    D = mu.shape[0] if mu.dim() == 1 else -1
-    if not 1 <= D <= HAWKES_MAX_D:
-        raise ValueError(
-            f"the hawkes_pass kernel takes 1 to HAWKES_MAX_D="
-            f"{HAWKES_MAX_D} dimensions (alpha and the chunk's [D, D] "
-            f"partial live in one block's shared memory), got "
-            f"D={D if D > 0 else tuple(mu.shape)}")
-    f32 = torch.float32
-    for nm, t, dtype, shape in (
-            ("dt", dt, f32, (C, K)), ("dims", dims, torch.int32, (C, K)),
-            ("mask", mask, torch.bool, (C, K)), ("tail", tail, f32, (C, K)),
-            ("mu", mu, f32, (D,)), ("alpha", alpha, f32, (D, D)),
-            ("beta", beta, f32, (D,))):
-        _require(t, nm, dtype, shape, dev)
+    mode, or grad mode with ``grad=True``).  A pass is three CUDA launches
+    (segment summaries, carries, the pass) and counts once.  Raises
+    ``ValueError`` naming the limit for a ``D`` above
+    :data:`HAWKES_MAX_D`."""
+    C, K, D = _hawkes_inputs("launch_hawkes_pass", (
+        ("dt", dt), ("dims", dims), ("mask", mask), ("tail", tail),
+        ("mu", mu), ("alpha", alpha), ("beta", beta)), mu)
     lib = _hawkes_lib()
+    dev, f32 = dt.device, torch.float32
+    W = lib.rq_hawkes_segments(D)
+    work = torch.empty(lib.rq_hawkes_workspace_floats(C, W, D), dtype=f32,
+                       device=dev)
     ll = torch.empty(C, dtype=f32, device=dev)
     a = torch.empty((C, D), dtype=f32, device=dev)
     b = torch.empty((C, D, D), dtype=f32, device=dev)
     w = torch.empty((C, D), dtype=f32, device=dev)
     e = torch.empty((C, D), dtype=f32, device=dev)
-    health = torch.empty(D, dtype=torch.int32, device=dev)
+    health = torch.zeros(D, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.rq_hawkes_pass_launch(
         dt.data_ptr(), dims.data_ptr(), mask.data_ptr(), tail.data_ptr(),
         mu.data_ptr(), alpha.data_ptr(), beta.data_ptr(), ll.data_ptr(),
         a.data_ptr(), b.data_ptr(), w.data_ptr(), e.data_ptr(),
-        health.data_ptr(), C, K, D, 1 if grad else 0, stream)
-    if rc != 0:
-        msg = lib.rq_hawkes_error_string(rc).decode(errors="replace")
-        raise RuntimeError(
-            f"hawkes_pass launch failed: CUDA error {rc} ({msg})")
+        health.data_ptr(), C, K, D, 1 if grad else 0, work.data_ptr(),
+        stream)
+    _hawkes_check(lib, rc, "hawkes_pass")
     LAUNCHES["hawkes_pass"] += 1
     return ll, a, b, w, e, health
+
+
+def launch_hawkes_carry(dt: torch.Tensor, dims: torch.Tensor,
+                        mask: torch.Tensor, beta: torch.Tensor,
+                        segments: int = None, grad: bool = False):
+    """Phases (A) and (B) of the Hawkes pass alone, on CUDA tensors: R and
+    Q at the start of every segment, ``(r_in, q_in)`` f32 [C, W, D] with
+    ``W = segments`` a chunk (the pass's own by default; ``q_in`` is zero
+    in grad mode), as ``learn.loglik.hawkes_carry_plain`` gives them."""
+    C, K, D = _hawkes_inputs("launch_hawkes_carry", (
+        ("dt", dt), ("dims", dims), ("mask", mask), ("beta", beta)), beta)
+    lib = _hawkes_lib()
+    W = lib.rq_hawkes_segments(D) if segments is None else int(segments)
+    top = lib.rq_hawkes_max_segments(D)
+    if not 1 <= W <= top:
+        raise ValueError(f"launch_hawkes_carry takes 1 to {top} segments a "
+                         f"chunk at D={D}, got {W}")
+    dev, f32 = dt.device, torch.float32
+    work = torch.empty(lib.rq_hawkes_workspace_floats(C, W, D), dtype=f32,
+                       device=dev)
+    r_in = torch.empty((C, W, D), dtype=f32, device=dev)
+    q_in = torch.empty((C, W, D), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.rq_hawkes_carry_launch(
+        dt.data_ptr(), dims.data_ptr(), mask.data_ptr(), beta.data_ptr(),
+        r_in.data_ptr(), q_in.data_ptr(), C, K, D, W, 1 if grad else 0,
+        work.data_ptr(), stream)
+    _hawkes_check(lib, rc, "hawkes_carry")
+    LAUNCHES["hawkes_carry"] += 1
+    return r_in, q_in

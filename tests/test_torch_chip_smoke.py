@@ -459,7 +459,7 @@ def test_phase9c_corpus_fit_and_pass_checks(corpus_small, host_events):
     (res, ch, fit), rows = corpus_small
     assert res["rows"] == rows and res["launches"] == 0
     assert len(res["walls_s"]) == 3 and res["events_per_s_fitted"] > 0
-    assert len(res["curve"]) == 3
+    assert len(res["curve"]) == chip_smoke.CORPUS_ITERS[-1]
     checks = chip_smoke.corpus_pass_checks(ch, fit, "cpu", n_compare=2)
     assert checks["responsibility_gap"] <= 1e-4 * rows
     assert checks["cross"]["max_abs_err"] == 0.0

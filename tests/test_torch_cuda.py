@@ -409,7 +409,15 @@ def test_bench_quick_on_card_names_the_card():
 
 @pytest.mark.parametrize("grad", [False, True], ids=["stats", "grad"])
 @pytest.mark.parametrize("D,n,K", [(5, 3000, 1024), (64, 3840, 512),
-                                   (33, 700, 100)])
+                                   (33, 700, 100),
+                                   # the world's shape: one chunk, 1,093
+                                   # events, three dimensions
+                                   (3, 1093, 4096),
+                                   # three dimensions a lane, and
+                                   # the widest D the kernel takes
+                                   (96, 2000, 512), (128, 2000, 512),
+                                   # 16 chunks of the corpus's width
+                                   (64, 16 * 4096 - 2048, 4096)])
 def test_hawkes_pass_matches_plain_on_card(card, grad, D, n, K):
     ch, mu, alpha, beta = chip_smoke.pass_stream(D, n, K, seed=D)
     before = kernels.LAUNCHES["hawkes_pass"]
@@ -427,6 +435,35 @@ def test_hawkes_pass_is_deterministic_on_card(card):
     b = loglik.hawkes_pass(*args)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def test_hawkes_pass_is_deterministic_on_card_across_chunks(card):
+    from redqueen_tpu_torch.learn import loglik
+
+    ch, mu, alpha, beta = chip_smoke.pass_stream(64, 16 * 4096 - 2048, 4096,
+                                                 seed=64)
+    args = chip_smoke.pass_inputs(ch, mu, alpha, beta, card)
+    for grad in (False, True):
+        a = loglik.hawkes_pass(*args, grad=grad)
+        b = loglik.hawkes_pass(*args, grad=grad)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+# The carries: the kernel's phases (A) and (B) against hawkes_carry_plain,
+# within chip_smoke.CARRY_RTOL (1e-5) of the largest magnitude.
+@pytest.mark.parametrize("grad", [False, True], ids=["stats", "grad"])
+@pytest.mark.parametrize("D,n,K,W", [
+    (3, 1093, 4096, None), (33, 1100, 100, 8), (64, 16 * 4096 - 2048, 4096,
+                                                None),
+    (96, 2000, 512, None), (128, 2000, 512, None),
+    (5, 300, 64, 12)])   # segments of 6: the last one empty
+def test_hawkes_carry_matches_plain_on_card(card, grad, D, n, K, W):
+    ch, _, _, beta = chip_smoke.pass_stream(D, n, K, seed=D)
+    before = kernels.LAUNCHES["hawkes_carry"]
+    out = chip_smoke.carry_cross(f"D={D}", ch, beta, card, grad, segments=W)
+    assert kernels.LAUNCHES["hawkes_carry"] == before + 1
+    assert out["segments"] == (W or kernels.hawkes_segments(D))
 
 
 def test_hawkes_wrapper_refuses_what_the_kernel_does_not_take(card):
@@ -447,6 +484,18 @@ def test_hawkes_wrapper_refuses_what_the_kernel_does_not_take(card):
     bad[5] = bad[5][:, :3].contiguous()
     with pytest.raises(ValueError, match="alpha has shape"):
         kernels.launch_hawkes_pass(*bad)
+
+
+def test_hawkes_carry_wrapper_refuses_segments_it_does_not_take(card):
+    ch, _, _, beta = chip_smoke.pass_stream(64, 500, 128, seed=0)
+    dt, dims, mask, _, _, _, b = chip_smoke.pass_inputs(
+        ch, np.ones(64), np.zeros((64, 64)), beta, card)
+    top = kernels.hawkes_segments(64)
+    assert kernels.launch_hawkes_carry(dt, dims, mask, b, top)[0].shape[1] \
+        == top
+    for bad in (0, top + 1):
+        with pytest.raises(ValueError, match="segments a chunk at D=64"):
+            kernels.launch_hawkes_carry(dt, dims, mask, b, bad)
 
 
 @pytest.mark.parametrize("solver", ["em", "fw"])

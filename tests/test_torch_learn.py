@@ -14,6 +14,11 @@ Tolerances, each stated where it is used:
   and the port sums a chunk's terms in another order), health equal;
 - ``hawkes_loglik``: rtol 1e-6 against the reference, 2e-4 against the
   O(n^2) float64 sum (as ``tests/test_learn.py``);
+- the kernel's carries (``hawkes_carry_plain``: R and Q at every
+  segment start, composed from segment and chunk summaries): within
+  2e-6 of the largest magnitude against a float64 event-by-event walk
+  written here (float32 rounding of the products and sums, compounded
+  over a few thousand events);
 - the grad mode: against ``torch.autograd`` through the plain pass
   within 1e-5 relative (the same terms summed in another order), against
   ``jax.grad`` within rtol 1e-5;
@@ -308,6 +313,94 @@ def test_hawkes_loglik_runs_on_the_card_by_default():
         TL.fit_hawkes(s, max_iters=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TL.holdout_nll(s, [1.0], [[0.1]], [1.0])
+
+
+CARRY_CASES = {  # (n events, D, chunk size K, segments W)
+    # K = 100 at W = 8: segments of 13, the last one of 9; 16 chunks of
+    # which 1 is all padding
+    "D3": (1500, 3, 100, 8),
+    # W = 12: segments of 9, the last one of 1
+    "D33": (1100, 33, 100, 12),
+    "D64": (2500, 64, 256, 12),
+    # segments of 6 in chunks of 64: the last one empty, and every
+    # segment of the padded chunks all padding
+    "empty": (300, 5, 64, 12)}
+
+
+def walked_carries(ch, beta, W):
+    """R and Q at every segment start, float64, walked event by event in
+    global order (the recursion of the module docstring)."""
+    C, K = ch.dt.shape
+    L = -(-K // W)
+    b = np.asarray(beta, np.float64)
+    R = np.zeros(ch.n_dims)
+    Q = np.zeros(ch.n_dims)
+    r_in = np.zeros((C, W, ch.n_dims))
+    q_in = np.zeros((C, W, ch.n_dims))
+    for c in range(C):
+        for s in range(W):
+            if s * L >= K:          # an empty segment starts at the end
+                continue
+            for k in range(s * L, min(s * L + L, K)):
+                if k == s * L:
+                    r_in[c, s], q_in[c, s] = R, Q
+                x = float(ch.dt[c, k])
+                d = np.exp(-b * x)
+                Q = d * (Q + x * R)
+                R = d * R
+                if ch.mask[c, k]:
+                    R[ch.dims[c, k]] += 1.0
+        for s in range(W):
+            if s * L >= K:
+                r_in[c, s], q_in[c, s] = R, Q
+    return r_in, q_in
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["stats", "grad"])
+@pytest.mark.parametrize("case", sorted(CARRY_CASES))
+def test_carry_plain_matches_a_float64_walk(case, grad):
+    n, D, K, W = CARRY_CASES[case]
+    ch = tingest.chunk_events(random_stream(D + 7, n, D, 20.0, tingest), K)
+    C = ch.dt.shape[0]
+    L = -(-K // W)
+    assert C > 1 and not ch.mask[-1].any()     # a chunk of padding only
+    assert K % L != 0 or W * L > K             # an uneven or empty segment
+    _, _, beta = params(D + 7, D)
+    ev = tloglik.to_device(ch, CPU)
+    r_in, q_in = tloglik.hawkes_carry_plain(
+        ev.dt, ev.dims, ev.mask, torch.tensor(beta, dtype=torch.float32),
+        W, grad=grad)
+    assert r_in.shape == q_in.shape == (C, W, D)
+    r_ref, q_ref = walked_carries(ch, beta, W)
+    assert np.abs(r_ref).max() > 1.0 and np.abs(q_ref).max() > 0.1
+    np.testing.assert_allclose(r_in.double().numpy(), r_ref, rtol=0,
+                               atol=2e-6 * np.abs(r_ref).max())
+    if grad:
+        assert not q_in.any()
+    else:
+        np.testing.assert_allclose(q_in.double().numpy(), q_ref, rtol=0,
+                                   atol=2e-6 * np.abs(q_ref).max())
+    # the CPU route of the dispatcher is the plain version
+    r2, q2 = tloglik.hawkes_carry(ev.dt, ev.dims, ev.mask,
+                                  torch.tensor(beta, dtype=torch.float32),
+                                  W, grad=grad)
+    assert torch.equal(r2, r_in) and torch.equal(q2, q_in)
+
+
+def test_hawkes_kernel_wrappers_refuse_cpu_tensors():
+    """The kernels' wrappers take CUDA tensors only (the CPU route is the
+    dispatchers' ``hawkes_pass``/``hawkes_carry``); they refuse before
+    building anything."""
+    from redqueen_tpu_torch.ops import kernels
+
+    ch = tingest.chunk_events(random_stream(3, 50, 2, 5.0, tingest), 16)
+    ev = tloglik.to_device(ch, CPU)
+    mu, alpha, beta = (torch.tensor(x) for x in f32(*params(3, 2)))
+    with pytest.raises(ValueError, match="launch_hawkes_pass takes CUDA"):
+        kernels.launch_hawkes_pass(ev.dt, ev.dims, ev.mask, ev.tail, mu,
+                                   alpha, beta)
+    with pytest.raises(ValueError, match="launch_hawkes_carry takes CUDA"):
+        kernels.launch_hawkes_carry(ev.dt, ev.dims, ev.mask, beta, 4)
 
 
 @pytest.mark.parametrize("case", ["D3", "D8"])
