@@ -132,13 +132,35 @@ Phases, each reported on its own line:
    through ``ParamSwapper``, and ``recover`` bit-identical (epoch,
    fingerprint, s_sink, digest, no lost acked seq).
 
+11. the serving cluster (``redqueen_tpu_torch.serving.cluster``) on the
+   card, at the serving bench's clustered settings (2,048 feeds, 4
+   shards, the quorum tier, coalesce 32, 2,048 batches of about 64
+   events after 8 warm-up batches): (a) 4 socket-placed worker
+   processes, each with its own CUDA context (checked against
+   ``nvidia-smi --query-compute-apps``), then the same workload in
+   process: events/s, decision p50/p99, the accounting identity, equal
+   digests; (b) 1, 2 and 4 shards in process; (c) a real SIGKILL of
+   shard 0's worker process halfway, the survivors serving the second
+   half, ``recover_shard(0)`` (MTTR with the new child's torch import and
+   CUDA start) and retransmit to the uninterrupted run's cluster digest,
+   the identity closed through the outage; (d) the offline ``reshard`` 4
+   -> 2 (edge digest equal) and a live ``begin_reshard`` 3 -> 4 under
+   traffic, its topology records and edge digest equal to the CPU run's;
+   (e) the 4-shard stream on the card and on the CPU, one batch a poll:
+   decisions equal but for near-ties (at most 2%), each shard's digest
+   equal after every batch up to its first near-tie; (f) a 64-feed
+   cross-exciting stream served through 4 shards, then
+   ``learn.from_journal(cluster_dir)`` -> ``fit_hawkes`` on the card
+   through ``hawkes_pass`` (launches counted into its row) within 5e-3
+   of the same fit on the CPU.
+
 Every event-kernel comparison holds every lane bit-identical: ``srcs``,
 ``n_events``, health, counters and ``times``.
 
 The phases' bodies live in ``redqueen_tpu_torch/smoke/``, one module per
 group (``fused``: 1-5, ``scan``: 6, ``presets``: 7, ``config5``: 8,
-``learn``: 9, ``serving``: 10, and ``common``); this script runs them in
-order.
+``learn``: 9, ``serving``: 10, ``cluster``: 11, and ``common``); this
+script runs them in order.
 
 Any failed check exits non-zero.  The last three lines are JSON: every
 measurement of the run (``{"measurements": {...}}``), the kernel table
@@ -236,6 +258,18 @@ from redqueen_tpu_torch.smoke.serving import (
     serve_bench,
     width_invariance,
 )
+from redqueen_tpu_torch.smoke.cluster import (
+    card_contexts,
+    cluster_bench,
+    fit_from_journals,
+    kill_one_worker,
+    live_grow,
+    phase_cluster,
+    reshard_checks,
+    reshard_offline,
+)
+from redqueen_tpu_torch.smoke.cluster import \
+    card_against_cpu as cluster_card_against_cpu
 
 
 def main():
@@ -257,6 +291,7 @@ def main():
     result["config5"] = phase_config5(dev)
     result["learn"] = ln = phase_learn(dev)
     result["serving"] = sv = phase_serving(dev)
+    result["cluster"] = cl = phase_cluster(dev)
     n_launch = len(hl["kernel_ms_per_launch"])
     row = {
         "name": "event_kernel", "route": "cuda",
@@ -277,7 +312,7 @@ def main():
         "source": "redqueen_tpu_torch/csrc/hawkes_pass.cu",
         "replaces": "redqueen_tpu/learn/loglik.py:125 (lax.scan; no Pallas "
                     "kernel)",
-        "launches": ln["launches"] + sv["launches"],
+        "launches": ln["launches"] + sv["launches"] + cl["launches"],
         "max_abs_err": max([r["max_abs_err"]
                             for r in ln["parity"].values()]
                            + [c["cross"]["max_abs_err"]]),

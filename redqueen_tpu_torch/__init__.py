@@ -26,57 +26,73 @@ follower set, no event loop), the bucketed ragged dispatch
 This package imports torch and numpy only; the JAX package
 ``redqueen_tpu`` is its reference and is never imported here."""
 
-from .config import (
-    ConfigValidationError,
-    GraphBuilder,
-    SimConfig,
-    SimState,
-    SourceParams,
-    stack_components,
-)
-from .baselines import (
-    budget_matched_poisson_rate,
-    offline_rates,
-    offline_schedule,
-    offline_visibility,
-)
-from .convert import (
-    ctrl_params_from_numpy,
-    feed_state_from_numpy,
-    load_rmtpp_npz,
-    rmtpp_weights_from_jax,
-    rmtpp_weights_to_jax,
-    sim_config_from_fields,
-    sim_state_from_numpy,
-    sim_state_to_numpy,
-    source_params_from_numpy,
-    source_params_to_numpy,
-    star_config_from_fields,
-    wall_params_from_numpy,
-)
-from .device import resolve_device
-from . import learn  # noqa: E402  (the Hawkes fit: learn.fit_hawkes, ...)
-from .parallel.bigf import (
-    CtrlParams,
-    StarBuilder,
-    StarConfig,
-    WallParams,
-    broadcast_star,
-    simulate_star,
-    simulate_star_batch,
-    stack_star,
-)
-from .parallel.lanes import plan_buckets, shape_budget, simulate_ragged
-from .presets import PRESETS, build_preset, power_law_graph, run_preset
-from .runtime.numerics import NumericalHealthError
-from .sim import EventLog, resume, select_engine, simulate, simulate_batch
-from .sweep import SweepResult, run_sweep, run_sweep_star
-from .utils.metrics import (
-    FeedMetrics,
-    feed_metrics,
-    feed_metrics_batch,
-    num_posts,
-)
+import os as _os
+
+# Serving worker children (RQ_SERVING_WORKER=1, set by
+# serving.worker.WorkerHandle.spawn) must spawn cheap and stay torch-free
+# until their first open/recover request loads the shard.  Under the
+# flag the eager torch-pulling re-exports below are skipped; the
+# module-level __getattr__ (PEP 562) resolves every one of them lazily,
+# so the public surface is identical either way — only the import COST
+# moves.
+_RQ_MINIMAL_IMPORT = bool(_os.environ.get("RQ_SERVING_WORKER"))
+
+# name -> owning submodule (None: a subpackage): THE definition of the
+# re-exported surface.  The eager loop below and the PEP 562 fallback
+# both read it, so a new export is added exactly once and behaves the
+# same on the normal and the minimal-import (worker-child) path.
+_LAZY_ATTRS = {
+    "ConfigValidationError": ".config", "GraphBuilder": ".config",
+    "SimConfig": ".config", "SimState": ".config",
+    "SourceParams": ".config", "stack_components": ".config",
+    "budget_matched_poisson_rate": ".baselines",
+    "offline_rates": ".baselines", "offline_schedule": ".baselines",
+    "offline_visibility": ".baselines",
+    "ctrl_params_from_numpy": ".convert",
+    "feed_state_from_numpy": ".convert", "load_rmtpp_npz": ".convert",
+    "rmtpp_weights_from_jax": ".convert",
+    "rmtpp_weights_to_jax": ".convert",
+    "sim_config_from_fields": ".convert",
+    "sim_state_from_numpy": ".convert", "sim_state_to_numpy": ".convert",
+    "source_params_from_numpy": ".convert",
+    "source_params_to_numpy": ".convert",
+    "star_config_from_fields": ".convert",
+    "wall_params_from_numpy": ".convert",
+    "resolve_device": ".device",
+    "learn": None,  # the Hawkes fit: learn.fit_hawkes, ...
+    "CtrlParams": ".parallel.bigf", "StarBuilder": ".parallel.bigf",
+    "StarConfig": ".parallel.bigf", "WallParams": ".parallel.bigf",
+    "broadcast_star": ".parallel.bigf", "simulate_star": ".parallel.bigf",
+    "simulate_star_batch": ".parallel.bigf", "stack_star": ".parallel.bigf",
+    "plan_buckets": ".parallel.lanes", "shape_budget": ".parallel.lanes",
+    "simulate_ragged": ".parallel.lanes",
+    "PRESETS": ".presets", "build_preset": ".presets",
+    "power_law_graph": ".presets", "run_preset": ".presets",
+    "NumericalHealthError": ".runtime.numerics",
+    "EventLog": ".sim", "resume": ".sim", "select_engine": ".sim",
+    "simulate": ".sim", "simulate_batch": ".sim",
+    "SweepResult": ".sweep", "run_sweep": ".sweep",
+    "run_sweep_star": ".sweep",
+    "FeedMetrics": ".utils.metrics", "feed_metrics": ".utils.metrics",
+    "feed_metrics_batch": ".utils.metrics", "num_posts": ".utils.metrics",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY_ATTRS:
+        import importlib
+
+        target = _LAZY_ATTRS[name]
+        if target is None:  # a subpackage re-export
+            return importlib.import_module("." + name, __name__)
+        return getattr(importlib.import_module(target, __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+if not _RQ_MINIMAL_IMPORT:
+    for _n in _LAZY_ATTRS:
+        globals()[_n] = __getattr__(_n)
+    del _n
 
 __all__ = [
     "ConfigValidationError", "GraphBuilder", "SimConfig", "SimState",

@@ -1,21 +1,123 @@
 """Event traces for real-data replay, the part of the JAX package's
-``data/traces.py`` that BASELINE configs 4 and 5 need, in numpy: the
+``data/traces.py`` that BASELINE configs 4 and 5 and corpus serving
+need, in numpy: the CSV loader (its Python engine) and writer, the
 heavy-tailed synthetic corpus, padding, the star component built from a
-corpus and the gap sequences RMTPP trains on.  The CSV and npz loaders,
-normalisation and bucketing wait for ROADMAP.md Queue 1 item 10."""
+corpus and the gap sequences RMTPP trains on.  The native C++ loader,
+the npz loaders, normalisation and bucketing wait for ROADMAP.md Queue 1
+item 10.
+
+No instructions from data files are ever executed — traces are parsed
+as numbers only."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..device import DeviceLike
 
-__all__ = ["Traces", "pad_traces", "gaps_from_traces", "synthetic_twitter",
-           "star_from_traces"]
+__all__ = ["Traces", "TraceOrderError", "LoadStats", "load_csv",
+           "save_csv", "pad_traces", "gaps_from_traces",
+           "synthetic_twitter", "star_from_traces"]
 
 Traces = List[np.ndarray]  # one ascending float64 time array per user
+
+
+class TraceOrderError(ValueError):
+    """A trace row's timestamp cannot be ordered (NaN): typed rejection
+    instead of a silently NaN-sorted corpus.  Downstream consumers (the
+    serving ingest path's reorder window, the RealData replay) all
+    assume orderable times, so an unorderable row must die at the
+    boundary with a line number, not three layers later as a
+    quarantined lane."""
+
+
+class LoadStats(NamedTuple):
+    """What the parse observed about the corpus's ORDER quality — the
+    measured input contract for the serving reorder window (a corpus
+    with many non-monotonic rows needs a wide window; duplicates feed
+    the duplicate-drop expectation)."""
+
+    n_rows: int                 # events parsed (post header/blank skip)
+    n_users: int                # distinct users
+    duplicate_timestamps: int   # same user, exactly equal timestamps
+    non_monotonic_rows: int     # rows that regressed vs the same user's
+    #                             previous row in FILE order
+
+
+def load_csv(path: str, user_col: int = 0, time_col: int = 1,
+             delimiter: str = ",", skip_header: int = 1,
+             engine: str = "auto", return_stats: bool = False):
+    """Load (user, timestamp) rows into per-user ascending time arrays.
+
+    Users are ordered by first appearance; times sort per user (the JAX
+    package's format and output).  ``engine``: ``"python"`` and
+    ``"auto"`` parse in the interpreter — the native C++ parser is not
+    ported, so ``"auto"`` always takes this path (as the reference's
+    does when its native loader does not build); ``"native"`` raises
+    ``NotImplementedError``.
+
+    ``return_stats=True`` returns ``(traces, LoadStats)`` — the
+    duplicate-timestamp / non-monotonic-row counts are surfaced, never
+    silently absorbed by the per-user sort.  A NaN timestamp raises
+    :class:`TraceOrderError` (it cannot be ordered)."""
+    if engine not in ("auto", "native", "python"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "native":
+        raise NotImplementedError(
+            "the native C++ trace loader is not ported yet — ROADMAP.md "
+            "Queue 1 item 10; use engine='python' or 'auto'")
+    users: Dict = {}
+    order: List = []
+    n_rows = 0
+    non_monotonic = 0
+    with open(path) as f:
+        for i, line in enumerate(f):
+            if i < skip_header or not line.strip():
+                continue
+            parts = line.rstrip("\n").split(delimiter)
+            u = parts[user_col]
+            t = float(parts[time_col])
+            if t != t:  # NaN: unorderable
+                raise TraceOrderError(
+                    f"{path}: line {i}: unorderable timestamp "
+                    f"'{parts[time_col].strip()}' (NaN rows cannot be "
+                    f"ordered)")
+            if u not in users:
+                users[u] = []
+                order.append(u)
+            elif users[u] and t < users[u][-1]:
+                non_monotonic += 1
+            users[u].append(t)
+            n_rows += 1
+    out = [np.sort(np.asarray(users[u], np.float64)) for u in order]
+    if not return_stats:
+        return out
+    duplicates = sum(int(np.sum(a[1:] == a[:-1])) for a in out if len(a))
+    return out, LoadStats(
+        n_rows=n_rows, n_users=len(order),
+        duplicate_timestamps=duplicates,
+        non_monotonic_rows=non_monotonic)
+
+
+def save_csv(path: str, traces: Traces, float_format: str = "%.9g") -> None:
+    """Write traces as (user, time) CSV rows under a ``user,time``
+    header, user-major, so :func:`load_csv` round-trips to the same
+    per-user arrays: users are ordered by first appearance (= writing
+    order, named ``u000000``...) and times are already ascending per
+    user.  The bytes are the JAX package's.
+
+    ``float_format`` %.9g keeps ~1e-9 relative precision — beyond the
+    float32 resolution the kernels run at (exact f64 round-trip needs
+    %.17g at ~2x the file size).  Users with EMPTY traces write no rows
+    and therefore vanish on round trip (CSV cannot represent them)."""
+    with open(path, "w") as f:
+        f.write("user,time\n")
+        for i, t in enumerate(traces):
+            name = f"u{i:06d}"
+            f.writelines(f"{name},{float_format % float(x)}\n"
+                         for x in np.asarray(t, np.float64))
 
 
 def pad_traces(traces: Traces, length: Optional[int] = None

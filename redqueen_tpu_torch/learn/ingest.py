@@ -31,7 +31,7 @@ corpus timestamps would quantize consecutive-event gaps at f32.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 
@@ -240,45 +240,15 @@ def from_event_log(log, sources: Optional[Sequence[int]] = None,
                        t_start=float(log.cfg.start_time))
 
 
-def _mix64(x: np.ndarray) -> np.ndarray:
-    """splitmix64 finalizer over uint64 (vectorized; wraparound is the
-    point): user → dimension assignment that is stable across runs and
-    processes, never Python ``hash``.  A private copy of the JAX
-    package's ``serving.cluster._mix64``, the serving cluster's edge
-    partitioner, so that grouping here matches its shard partitioning;
-    it moves to the port's serving modules with ROADMAP.md Queue 1
-    item 9."""
-    x = np.asarray(x, np.uint64)
-    with np.errstate(over="ignore"):
-        x = x + np.uint64(0x9E3779B97F4A7C15)
-        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
-        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
-        x = x ^ (x >> np.uint64(31))
-    return x
+def _splitmix64(x: np.ndarray) -> np.ndarray:
+    """Deterministic 64-bit mix — user→dimension assignment that is
+    stable across runs and processes, never Python ``hash``.  ONE
+    implementation: this is the serving cluster's edge partitioner
+    (``serving.cluster._mix64``), so grouping here can never silently
+    diverge from shard partitioning."""
+    from ..serving.cluster import _mix64
 
-
-def _merge_traces(traces: List[np.ndarray],
-                  max_rows: Optional[int] = None
-                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """Merge per-user ascending trace arrays into ONE globally
-    time-ordered event stream ``(times f64[R], users i32[R])`` (a private
-    copy of the JAX package's ``serving.corpus.merge_traces``; it moves
-    to the port's serving modules with ROADMAP.md Queue 1 item 9).  The
-    sort is stable, so rows with equal timestamps keep user order;
-    ``max_rows`` truncates the MERGED stream (a time-prefix of the
-    corpus), never a per-user bite."""
-    n_users = len(traces)
-    if n_users == 0:
-        return np.empty(0, np.float64), np.empty(0, np.int32)
-    times = np.concatenate([np.asarray(t, np.float64) for t in traces]) \
-        if any(len(t) for t in traces) else np.empty(0, np.float64)
-    feeds = np.repeat(np.arange(n_users, dtype=np.int32),
-                      [len(t) for t in traces])
-    order = np.argsort(times, kind="stable")
-    times, feeds = times[order], feeds[order]
-    if max_rows is not None and len(times) > int(max_rows):
-        times, feeds = times[: int(max_rows)], feeds[: int(max_rows)]
-    return times, feeds
+    return _mix64(x)
 
 
 def _group_dims(ids: np.ndarray, n_ids: int, n_dims: Optional[int],
@@ -290,7 +260,7 @@ def _group_dims(ids: np.ndarray, n_ids: int, n_dims: Optional[int],
         return ids, max(int(n_ids), 1)
     D = int(n_dims)
     if assign == "hash":
-        return ((_mix64(ids.astype(np.uint64)) % np.uint64(D))
+        return ((_splitmix64(ids.astype(np.uint64)) % np.uint64(D))
                 .astype(np.int32), D)
     if assign == "modulo":
         return (ids % D).astype(np.int32), D
@@ -329,7 +299,9 @@ def from_traces(traces: List[np.ndarray], n_dims: Optional[int] = None,
     zero (the synthetic corpora) but WRONG for absolute epoch timestamps:
     there, pass the corpus's real observation window explicitly, or the
     fit charges the dead ``[0, t_first]`` span and biases ``mu`` low."""
-    times, users = _merge_traces(traces, max_rows=max_rows)
+    from ..serving.corpus import merge_traces
+
+    times, users = merge_traces(traces, max_rows=max_rows)
     dims, D = _group_dims(users, max(len(traces), 1), n_dims, assign)
     t_end, t_start = _window(times, t_end, t_start)
     return make_stream(times, dims, D, t_end=t_end, t_start=t_start)

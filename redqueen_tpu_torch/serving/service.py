@@ -49,8 +49,6 @@ import time
 from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
                     Tuple)
 
-import hashlib
-
 import numpy as np
 import torch
 
@@ -157,28 +155,6 @@ def _param_tensor(x, device: torch.device) -> torch.Tensor:
     holding the previous epoch's keeps them intact."""
     return torch.as_tensor(np.asarray(x, np.float64),
                            dtype=torch.float32).to(device)
-
-
-def _range_digest(feeds: Sequence[int], rank: np.ndarray,
-                  health: np.ndarray) -> str:
-    """Canonical digest of one moved range's carry slice — global feed
-    ids + per-edge ``(rank f32, health u32)``, excluding the stream
-    position.  A private copy of the JAX package's
-    ``serving.topology.range_digest`` until the cluster layer (and its
-    ``topology``) is ported."""
-    feeds = np.ascontiguousarray(np.asarray(feeds, np.int64))
-    rank = np.ascontiguousarray(np.asarray(rank, np.float32))
-    health = np.ascontiguousarray(np.asarray(health, np.uint32))
-    if not (len(feeds) == len(rank) == len(health)):
-        raise ValueError(
-            f"range arrays disagree: {len(feeds)} feeds, "
-            f"{len(rank)} ranks, {len(health)} health words")
-    h = hashlib.sha256()
-    h.update(np.int64(len(feeds)).tobytes())
-    h.update(feeds.tobytes())
-    h.update(rank.tobytes())
-    h.update(health.tobytes())
-    return h.hexdigest()
 
 
 def _set_range(state: FeedState, idx, rank, health) -> FeedState:
@@ -531,7 +507,8 @@ class ServingRuntime:
             raise ValueError(
                 f"install_range indices out of range for "
                 f"{self.n_feeds} feeds")
-        got = _range_digest(feeds, r, h)
+        from .topology import range_digest
+        got = range_digest(feeds, r, h)
         if got != digest:
             raise RuntimeError(
                 f"range payload digest mismatch at install: fence "

@@ -564,3 +564,33 @@ def test_fit_while_serving_on_card(card):
     out = chip_smoke.fit_while_serving(card, D=16, t_end=600.0)
     assert out["launches"] >= 1 and out["epoch"] == 1
     assert kernels.LAUNCHES["hawkes_pass"] == out["launches"]
+
+
+# ---- the serving cluster (chip_smoke.py phase 11's parts, smaller) ----
+
+def test_cluster_in_process_on_card_matches_cpu(card):
+    out = chip_smoke.cluster_card_against_cpu(card, n_feeds=256,
+                                              n_batches=64, n_shards=2)
+    assert out["decisions"] == 2 * (64 + 8) and out["posts"] > 0
+
+
+def test_cluster_workers_hold_the_card(card):
+    """Two worker processes, each with a context on the card, serve the
+    in-process cluster's digest."""
+    from redqueen_tpu_torch.smoke import cluster as smoke_cluster
+
+    batches = smoke_cluster.bench_stream(256, 64)
+    ip = chip_smoke.cluster_bench(card, "in-process", 2, batches,
+                                  n_feeds=256)
+    w = chip_smoke.cluster_bench(card, "workers", 2, batches, n_feeds=256,
+                                 check_contexts=True)
+    assert w["digest"] == ip["digest"]
+    assert w["contexts"]["method"] in ("pid", "count")
+
+
+def test_cluster_reshard_on_card(card):
+    from redqueen_tpu_torch.smoke import cluster as smoke_cluster
+
+    out = chip_smoke.reshard_offline(card, smoke_cluster.bench_stream(256, 32),
+                                     n_feeds=256)
+    assert out["to"] == 2 and out["seq"] == 32 + 8 - 1

@@ -144,9 +144,11 @@ def test_from_traces_grouping_equal(kw):
 
 def test_mix64_matches_the_serving_partitioner():
     from redqueen_tpu.serving.cluster import _mix64
+    from redqueen_tpu_torch.serving import cluster as tcluster
 
     x = np.arange(0, 10 ** 6, 997, dtype=np.uint64)
-    np.testing.assert_array_equal(tingest._mix64(x), _mix64(x))
+    np.testing.assert_array_equal(tingest._splitmix64(x), _mix64(x))
+    np.testing.assert_array_equal(tcluster._mix64(x), _mix64(x))
 
 
 @pytest.fixture(scope="module")

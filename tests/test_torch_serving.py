@@ -322,7 +322,7 @@ def test_journal_records_equal_the_reference(tmp_path, fmt, coalesce):
 
 
 def test_install_carry_and_range_roundtrip(tmp_path):
-    """The carry seams the cluster layer will drive: ``install_carry`` of
+    """The carry seams the cluster layer drives: ``install_carry`` of
     a migrated carry, ``extract_range``/``install_range`` (journaled and
     digest-asserted), and replay of the range record."""
     F = 12
@@ -334,7 +334,8 @@ def test_install_carry_and_range_roundtrip(tmp_path):
                            device="cpu")
     dst.install_carry(tstate.init_feed_state(F, 3, start_seq=0,
                                              device="cpu"))
-    from redqueen_tpu_torch.serving.service import _range_digest
+    from redqueen_tpu_torch.serving.topology import range_digest \
+        as _range_digest
     feeds = [101, 104, 107]
     dst.install_range(idx, r, h, feeds=feeds, topo_epoch=1,
                       digest=_range_digest(feeds, r, h), plan_id="p",

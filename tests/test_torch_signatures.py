@@ -92,6 +92,74 @@ PAIRS.update({
     "learn.run_sidecar": (jlearn.run_sidecar, tlearn.run_sidecar),
 })
 
+# The cluster layer: the router, topology, workers, corpus replay and the
+# RetryPolicy they back off with (the port adds ``device`` last).
+from redqueen_tpu.data import traces as jtraces  # noqa: E402
+from redqueen_tpu.runtime import supervisor as jsupervisor  # noqa: E402
+from redqueen_tpu.serving import corpus as jcorpus  # noqa: E402
+from redqueen_tpu.serving import worker as jworker  # noqa: E402
+from redqueen_tpu_torch.data import traces as ttraces  # noqa: E402
+from redqueen_tpu_torch.runtime import supervisor as tsupervisor  # noqa: E402,E501
+from redqueen_tpu_torch.serving import corpus as tcorpus  # noqa: E402
+from redqueen_tpu_torch.serving import worker as tworker  # noqa: E402
+
+PAIRS.update({f"serving.{n}": (getattr(jserving, n), getattr(tserving, n))
+              for n in ("partition", "shard_seed", "reshard",
+                        "range_digest", "churn_assign", "plan_moves",
+                        "read_topology_log")})
+PAIRS.update({f"ServingCluster.{n}": (getattr(jserving.ServingCluster, n),
+                                      getattr(tserving.ServingCluster, n))
+              for n in ("__init__", "recover", "submit", "submit_many",
+                        "poll", "decide", "kill_shard", "recover_shard",
+                        "partition_shard", "adopt_external_worker",
+                        "remote_worker_commands", "begin_reshard",
+                        "resume_migration", "add_edges", "drop_edges",
+                        "shard_digests", "cluster_digest", "edge_digest",
+                        "snapshot_all", "write_metrics", "durability",
+                        "reset_metrics", "close")})
+PAIRS.update({f"worker.{c}.{n}": (getattr(getattr(jworker, c), n),
+                                  getattr(getattr(tworker, c), n))
+              for c, n in (("WorkerHandle", "spawn"),
+                           ("SocketWorkerHandle", "worker_argv"),
+                           ("SocketWorkerHandle", "remote_command"),
+                           ("SocketWorkerHandle", "launch"),
+                           ("SocketWorkerHandle", "from_child"),
+                           ("SocketWorkerHandle", "spawn_socket"),
+                           ("SocketWorkerHandle", "await_external"))})
+PAIRS.update({
+    "worker.main": (jworker.main, tworker.main),
+    "serving.stream.cluster_final_payload": (jstream.cluster_final_payload,
+                                             tstream.cluster_final_payload),
+    "corpus.merge_traces": (jcorpus.merge_traces, tcorpus.merge_traces),
+    "corpus.corpus_batches": (jcorpus.corpus_batches,
+                              tcorpus.corpus_batches),
+    "corpus.serve_corpus": (jcorpus.serve_corpus, tcorpus.serve_corpus),
+    "corpus.main": (jcorpus.main, tcorpus.main),
+    "traces.load_csv": (jtraces.load_csv, ttraces.load_csv),
+    "traces.save_csv": (jtraces.save_csv, ttraces.save_csv),
+    "RetryPolicy.__init__": (jsupervisor.RetryPolicy.__init__,
+                             tsupervisor.RetryPolicy.__init__),
+    "RetryPolicy.delay": (jsupervisor.RetryPolicy.delay,
+                          tsupervisor.RetryPolicy.delay),
+})
+# Where the port adds a parameter to a cluster entry point, it is
+# ``device``, and it comes last.
+_DEVICE_LAST = ("ServingCluster.__init__", "ServingCluster.recover",
+                "serving.reshard", "corpus.serve_corpus",
+                "worker.WorkerHandle.spawn",
+                "worker.SocketWorkerHandle.worker_argv",
+                "worker.SocketWorkerHandle.remote_command",
+                "worker.SocketWorkerHandle.launch",
+                "worker.SocketWorkerHandle.spawn_socket")
+
+
+@pytest.mark.parametrize("name", _DEVICE_LAST)
+def test_cluster_entry_points_add_device_last(name):
+    jfn, tfn = PAIRS[name]
+    jp = list(inspect.signature(jfn).parameters)
+    tpar = list(inspect.signature(tfn).parameters)
+    assert tpar == jp + ["device"]
+
 
 @pytest.mark.parametrize("name", sorted(PAIRS))
 def test_reference_parameters_lead_in_the_same_order(name):
