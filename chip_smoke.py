@@ -154,13 +154,36 @@ Phases, each reported on its own line:
    through ``hawkes_pass`` (launches counted into its row) within 5e-3
    of the same fit on the CPU.
 
+12. the runtime and the paper's experiments on the card, in at most 150
+   s: (a) the trade-off experiment (``tradeoff.run_grids``) at the
+   headline's width (q in {0.05, 0.1, 0.3, 1, 3, 10} x 1,667 seeds =
+   10,002 lanes, 10 Poisson walls, T = 100, ``engine="pallas"``), its
+   RedQueen and budget-matched Poisson halves through
+   ``run_sweep_checkpointed`` (chunks of 2 points) in a child under
+   ``Supervisor(backend="default", allow_degrade=False)``, the child
+   SIGTERMed once its first chunk lands and resumed by the retry, its
+   grids bit for bit those of an uninterrupted run, ``backend_used``
+   "cuda" on the child's word, the event kernel's launches counted (by
+   its wrapper and by ``engine.pallas.launches``); then one chunk's
+   byte flipped, quarantined and alone recomputed; (b) RedQueen above
+   the Poisson half at every q and by more than 4 standard errors at
+   q = 1; (c) ``closed_loop`` at its defaults inside
+   its tolerances through ``hawkes_pass``; (d) ``compare_policies`` at
+   its defaults on the card and on the CPU (processes of their own, run
+   beside the rest), the reference tests' orderings, each policy's mean
+   within 4 sigma of the CPU's, and ``rank_timeline``'s checks; (e)
+   ``live_swap --quick`` with its learner SIGKILLed; (f) the native
+   trace loader built with g++ and a 100,000-user corpus of about 10^6
+   rows loaded by both engines, equal; (g) the card's liveness probe and
+   ``ensure_backend``.
+
 Every event-kernel comparison holds every lane bit-identical: ``srcs``,
 ``n_events``, health, counters and ``times``.
 
 The phases' bodies live in ``redqueen_tpu_torch/smoke/``, one module per
 group (``fused``: 1-5, ``scan``: 6, ``presets``: 7, ``config5``: 8,
-``learn``: 9, ``serving``: 10, ``cluster``: 11, and ``common``); this
-script runs them in order.
+``learn``: 9, ``serving``: 10, ``cluster``: 11, ``runtime``: 12, and
+``common``); this script runs them in order.
 
 Any failed check exits non-zero.  The last three lines are JSON: every
 measurement of the run (``{"measurements": {...}}``), the kernel table
@@ -270,6 +293,7 @@ from redqueen_tpu_torch.smoke.cluster import (
 )
 from redqueen_tpu_torch.smoke.cluster import \
     card_against_cpu as cluster_card_against_cpu
+from redqueen_tpu_torch.smoke.runtime import phase_runtime
 
 
 def main():
@@ -292,12 +316,17 @@ def main():
     result["learn"] = ln = phase_learn(dev)
     result["serving"] = sv = phase_serving(dev)
     result["cluster"] = cl = phase_cluster(dev)
+    result["runtime"] = ph12 = phase_runtime(dev)
+    print(json.dumps({"runtime": ph12}))
     n_launch = len(hl["kernel_ms_per_launch"])
     row = {
         "name": "event_kernel", "route": "cuda",
         "source": "redqueen_tpu_torch/csrc/event_kernel.cu",
         "replaces": "redqueen_tpu/ops/pallas_engine.py:311",
-        "launches": hl["launches"]["event_kernel"],
+        "launches": (hl["launches"]["event_kernel"]
+                     + ph12["launches"]["event_kernel"]),
+        "launches_by_phase": {"5": hl["launches"]["event_kernel"],
+                              "12": ph12["launches"]["event_kernel"]},
         "max_abs_err": hl["parity"]["max_abs_err"],
         "ms": hl["kernel_ms_mean"],
         "ms_with_host": hl["kernel_with_host_ms_mean"],
@@ -312,7 +341,8 @@ def main():
         "source": "redqueen_tpu_torch/csrc/hawkes_pass.cu",
         "replaces": "redqueen_tpu/learn/loglik.py:125 (lax.scan; no Pallas "
                     "kernel)",
-        "launches": ln["launches"] + sv["launches"] + cl["launches"],
+        "launches": (ln["launches"] + sv["launches"] + cl["launches"]
+                     + ph12["launches"]["hawkes_pass"]),
         "max_abs_err": max([r["max_abs_err"]
                             for r in ln["parity"].values()]
                            + [c["cross"]["max_abs_err"]]),

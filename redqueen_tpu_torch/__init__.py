@@ -26,6 +26,8 @@ follower set, no event loop), the bucketed ragged dispatch
 This package imports torch and numpy only; the JAX package
 ``redqueen_tpu`` is its reference and is never imported here."""
 
+__version__ = "0.1.0"
+
 import os as _os
 
 # Serving worker children (RQ_SERVING_WORKER=1, set by
@@ -60,6 +62,7 @@ _LAZY_ATTRS = {
     "wall_params_from_numpy": ".convert",
     "resolve_device": ".device",
     "learn": None,  # the Hawkes fit: learn.fit_hawkes, ...
+    "runtime": None, "utils": None,
     "CtrlParams": ".parallel.bigf", "StarBuilder": ".parallel.bigf",
     "StarConfig": ".parallel.bigf", "WallParams": ".parallel.bigf",
     "broadcast_star": ".parallel.bigf", "simulate_star": ".parallel.bigf",
@@ -72,7 +75,7 @@ _LAZY_ATTRS = {
     "EventLog": ".sim", "resume": ".sim", "select_engine": ".sim",
     "simulate": ".sim", "simulate_batch": ".sim",
     "SweepResult": ".sweep", "run_sweep": ".sweep",
-    "run_sweep_star": ".sweep",
+    "run_sweep_star": ".sweep", "run_sweep_checkpointed": ".sweep",
     "FeedMetrics": ".utils.metrics", "feed_metrics": ".utils.metrics",
     "feed_metrics_batch": ".utils.metrics", "num_posts": ".utils.metrics",
 }
@@ -95,7 +98,7 @@ if not _RQ_MINIMAL_IMPORT:
     del _n
 
 __all__ = [
-    "ConfigValidationError", "GraphBuilder", "SimConfig", "SimState",
+    "__version__", "runtime", "utils", "ConfigValidationError", "GraphBuilder", "SimConfig", "SimState",
     "SourceParams", "stack_components", "sim_config_from_fields",
     "sim_state_from_numpy", "sim_state_to_numpy",
     "source_params_from_numpy", "source_params_to_numpy", "resolve_device",
@@ -108,7 +111,7 @@ __all__ = [
     "StarBuilder", "simulate_star", "simulate_star_batch", "stack_star",
     "broadcast_star", "plan_buckets", "simulate_ragged", "PRESETS",
     "build_preset", "run_preset", "power_law_graph", "SweepResult",
-    "run_sweep", "run_sweep_star", "offline_rates", "offline_visibility",
+    "run_sweep", "run_sweep_star", "run_sweep_checkpointed", "offline_rates", "offline_visibility",
     "offline_schedule", "budget_matched_poisson_rate",
     "rmtpp_weights_from_jax", "rmtpp_weights_to_jax", "load_rmtpp_npz",
     "learn",

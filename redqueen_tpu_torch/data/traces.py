@@ -1,10 +1,9 @@
-"""Event traces for real-data replay, the part of the JAX package's
-``data/traces.py`` that BASELINE configs 4 and 5 and corpus serving
-need, in numpy: the CSV loader (its Python engine) and writer, the
-heavy-tailed synthetic corpus, padding, the star component built from a
-corpus and the gap sequences RMTPP trains on.  The native C++ loader,
-the npz loaders, normalisation and bucketing wait for ROADMAP.md Queue 1
-item 10.
+"""Event traces for real-data replay, the counterpart of the JAX
+package's ``data/traces.py``, in numpy: the CSV loader (a Python engine
+and the native C++ one, ``redqueen_tpu_torch.native``) and writer, the
+npz loaders, normalisation of the time axis, padding and bucketing by
+length, the heavy-tailed synthetic corpus, the star components built
+from a corpus and the gap sequences RMTPP trains on.
 
 No instructions from data files are ever executed — traces are parsed
 as numbers only."""
@@ -18,8 +17,9 @@ import numpy as np
 from ..device import DeviceLike
 
 __all__ = ["Traces", "TraceOrderError", "LoadStats", "load_csv",
-           "save_csv", "pad_traces", "gaps_from_traces",
-           "synthetic_twitter", "star_from_traces"]
+           "save_csv", "save_npz", "load_npz", "normalize_traces",
+           "pad_traces", "bucket_traces", "gaps_from_traces",
+           "synthetic_twitter", "star_from_traces", "replay_buckets"]
 
 Traces = List[np.ndarray]  # one ascending float64 time array per user
 
@@ -52,22 +52,30 @@ def load_csv(path: str, user_col: int = 0, time_col: int = 1,
     """Load (user, timestamp) rows into per-user ascending time arrays.
 
     Users are ordered by first appearance; times sort per user (the JAX
-    package's format and output).  ``engine``: ``"python"`` and
-    ``"auto"`` parse in the interpreter — the native C++ parser is not
-    ported, so ``"auto"`` always takes this path (as the reference's
-    does when its native loader does not build); ``"native"`` raises
-    ``NotImplementedError``.
+    package's format and output).  ``engine``: ``"native"`` requires the
+    C++ parser (``redqueen_tpu_torch.native.loader``, built with g++ on
+    first use; a failed build raises ``NativeBuildError``), ``"python"``
+    parses in the interpreter, and ``"auto"`` takes the native parser
+    when it builds here and the arguments suit it (a one-byte delimiter,
+    non-negative columns), else the Python one.  Both engines give the
+    same traces and ``LoadStats``.
 
     ``return_stats=True`` returns ``(traces, LoadStats)`` — the
     duplicate-timestamp / non-monotonic-row counts are surfaced, never
     silently absorbed by the per-user sort.  A NaN timestamp raises
-    :class:`TraceOrderError` (it cannot be ordered)."""
+    :class:`TraceOrderError` (it cannot be ordered) in both engines."""
     if engine not in ("auto", "native", "python"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "native":
-        raise NotImplementedError(
-            "the native C++ trace loader is not ported yet — ROADMAP.md "
-            "Queue 1 item 10; use engine='python' or 'auto'")
+    native_ok = (len(delimiter.encode()) == 1
+                 and user_col >= 0 and time_col >= 0)
+    if engine == "native" or (engine == "auto" and native_ok):
+        from ..native import loader as _native
+
+        if engine == "native" or _native.available():
+            return _native.load_csv_native(
+                path, user_col=user_col, time_col=time_col,
+                delimiter=delimiter, skip_header=skip_header,
+                return_stats=return_stats)
     users: Dict = {}
     order: List = []
     n_rows = 0
@@ -120,6 +128,40 @@ def save_csv(path: str, traces: Traces, float_format: str = "%.9g") -> None:
                          for x in np.asarray(t, np.float64))
 
 
+def save_npz(path: str, traces: Traces) -> None:
+    """Persist traces as one array per user (``u000000``...), the JAX
+    package's layout: each package loads the other's file."""
+    np.savez_compressed(
+        path, **{f"u{i:06d}": t for i, t in enumerate(traces)})
+
+
+def load_npz(path: str) -> Traces:
+    """Traces saved by :func:`save_npz`, float64, in user order."""
+    with np.load(path) as z:
+        return [np.asarray(z[k], np.float64) for k in sorted(z.files)]
+
+
+def normalize_traces(traces: Traces, end_time: float,
+                     t_min: Optional[float] = None,
+                     t_max: Optional[float] = None) -> Traces:
+    """Map absolute timestamps affinely onto [0, end_time], dropping
+    events outside [t_min, t_max] (default: the corpus's range).  Raw
+    epoch seconds (~1.5e9) exceed float32's resolution, and the kernels
+    run in float32."""
+    all_t = (np.concatenate([t for t in traces if len(t)]) if traces
+             else np.empty(0))
+    if t_min is None:
+        t_min = float(all_t.min()) if len(all_t) else 0.0
+    if t_max is None:
+        t_max = float(all_t.max()) if len(all_t) else 1.0
+    span = max(t_max - t_min, 1e-12)
+    out = []
+    for t in traces:
+        t = t[(t >= t_min) & (t <= t_max)]
+        out.append((t - t_min) * (end_time / span))
+    return out
+
+
 def pad_traces(traces: Traces, length: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
     """Pad to a ``[U, L]`` float array (+inf tail) plus lengths ``[U]``."""
@@ -133,6 +175,27 @@ def pad_traces(traces: Traces, length: Optional[int] = None
     for i, t in enumerate(traces):
         out[i, :len(t)] = t
     return out, lens
+
+
+def bucket_traces(traces: Traces, edges: Sequence[int] = (16, 64, 256, 1024)
+                  ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Users grouped into length buckets to bound the padding: one
+    ``(user_indices [u], padded [u, L_b], lengths [u])`` per non-empty
+    bucket, ``L_b`` the bucket's edge (the longest trace past the last
+    edge gets a bucket of its own length; empty traces join the first)."""
+    lens = np.array([len(t) for t in traces], np.int64)
+    bounds = list(edges)
+    if len(lens) and lens.max() > bounds[-1]:
+        bounds.append(int(lens.max()))
+    out = []
+    lo = -1
+    for hi in bounds:
+        idx = np.where((lens > lo) & (lens <= hi))[0]
+        if len(idx):
+            padded, ls = pad_traces([traces[i] for i in idx], length=hi)
+            out.append((idx, padded, ls))
+        lo = hi
+    return out
 
 
 def gaps_from_traces(traces: Traces, length: Optional[int] = None
@@ -209,3 +272,25 @@ def star_from_traces(traces: Traces, end_time: float, ctrl: str = "opt",
         raise ValueError(f"unknown ctrl {ctrl!r}")
     return sb.build(wall_cap=max(int(lens.max()), 1), post_cap=post_cap,
                     device=device)
+
+
+def replay_buckets(traces: Traces, end_time: float, ctrl_times: np.ndarray,
+                   edges: Sequence[int] = (16, 64, 256, 1024),
+                   s_sink: Optional[Sequence[float]] = None,
+                   device: DeviceLike = "cuda"):
+    """Length-bucketed star components for a REPLAY-controlled
+    broadcaster: ``[(user_indices, cfg, wall, ctrl), ...]`` on ``device``,
+    one per :func:`bucket_traces` bucket, each padded only to its edge.
+    Valid because a replayed broadcaster's posts are fixed, so the feeds
+    decouple; RedQueen's clock couples every feed, so ``ctrl="opt"``
+    must run as one component.  Run each through ``simulate_star`` and
+    scatter the per-feed metrics back by ``user_indices``."""
+    out = []
+    for idx, padded, lens in bucket_traces(traces, edges=edges):
+        out.append(
+            (idx,) + star_from_traces(
+                [padded[i, :lens[i]] for i in range(len(idx))], end_time,
+                ctrl="replay", ctrl_times=ctrl_times,
+                s_sink=None if s_sink is None else [s_sink[i] for i in idx],
+                device=device))
+    return out

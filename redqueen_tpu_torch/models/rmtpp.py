@@ -538,9 +538,15 @@ def calibrate_budget(weights, target_posts: float, T: float,
     weights = map_weights(lambda t: torch.as_tensor(t).to(dev), weights)
     hidden = hidden_of(weights)
     cap = 1 << max(int(np.ceil(np.log2(max(8.0 * target_posts, 64.0)))), 6)
+    # The reference's chunk of min(cap, 4,096) events, stepped here in
+    # chunks of 64 under the same event allowance: the scan engine's
+    # events do not depend on the chunk, and a run steps whole chunks, so
+    # a smaller one stops sooner after the last event.
+    chunk = min(cap, 64)
+    max_chunks = -(-100 * min(cap, 4096) // chunk)
     gb = GraphBuilder(n_sinks=1, end_time=T)
     src = gb.add_rmtpp()
-    cfg, params, adj = gb.build(capacity=min(cap, 4096), rmtpp_hidden=hidden,
+    cfg, params, adj = gb.build(capacity=chunk, rmtpp_hidden=hidden,
                                 device=dev)
     seeds = np.arange(n_seeds) + seed0
 
@@ -551,7 +557,8 @@ def calibrate_budget(weights, target_posts: float, T: float,
     def realized(s):
         p_b, a_b = stack_components([attach(params, shifted(s))] * n_seeds,
                                     [adj] * n_seeds)
-        lg = simulate_batch(cfg, p_b, a_b, seeds, device=dev)
+        lg = simulate_batch(cfg, p_b, a_b, seeds, max_chunks=max_chunks,
+                            device=dev)
         return float(num_posts(lg.srcs, src).double().mean())
 
     lo, hi = 0.0, 0.0

@@ -34,6 +34,7 @@ from ..models.base import (
 )
 from ..runtime import faultinject as _faultinject
 from ..runtime import numerics as _numerics
+from ..runtime import telemetry as _telemetry
 from . import event_step, kernels
 from .event_step import KernelSpec
 from .sampling import piecewise_next_from_target
@@ -274,23 +275,38 @@ def drive(prep: Prepared, launch_fn: LaunchFn, max_chunks: int):
     times_chunks: List[torch.Tensor] = []
     srcs_chunks: List[torch.Tensor] = []
     dispatches = 0
-    for _ in range(n_launches):
-        carry, times_sc, srcs_sc = launch_fn(spec, prep.params, carry)
-        dispatches += 1
-        times_chunks.append(times_sc)
-        srcs_chunks.append(srcs_sc)
-        # A frozen sick lane counts as done, or it would spin the loop
-        # to max_chunks; torch.amin keeps a NaN clock NaN (not done).
-        alive = torch.any((torch.amin(carry["t_next"], dim=0) <= end)
-                          & (carry["health"] == 0))
-        if not bool(alive):  # the one host sync per launch
-            break
-    else:
-        raise RuntimeError(
-            f"simulation still active after {max_kernel_chunks} "
-            f"chunks of {cap} events ({dispatches} superchunk "
-            f"launches) — raise capacity or max_chunks (refusing "
-            f"to truncate silently)")
+    # The JAX package's spans (``pallas_engine.simulate_pallas``): the
+    # run, each launch's enqueue, the liveness sync that waits for it,
+    # and the launch count.
+    with _telemetry.span("engine.pallas.run", k=k, capacity=cap,
+                         lanes=prep.B) as run_span:
+        try:
+            for _ in range(n_launches):
+                with _telemetry.span("engine.pallas.launch"):
+                    carry, times_sc, srcs_sc = launch_fn(
+                        spec, prep.params, carry)
+                dispatches += 1
+                times_chunks.append(times_sc)
+                srcs_chunks.append(srcs_sc)
+                # A frozen sick lane counts as done, or it would spin the
+                # loop to max_chunks; torch.amin keeps a NaN clock NaN
+                # (not done).
+                with _telemetry.span("engine.pallas.sync"):
+                    alive = torch.any(
+                        (torch.amin(carry["t_next"], dim=0) <= end)
+                        & (carry["health"] == 0))
+                    done = not bool(alive)  # the one host sync a launch
+                if done:
+                    break
+            else:
+                raise RuntimeError(
+                    f"simulation still active after {max_kernel_chunks} "
+                    f"chunks of {cap} events ({dispatches} superchunk "
+                    f"launches) — raise capacity or max_chunks (refusing "
+                    f"to truncate silently)")
+        finally:
+            run_span.set(dispatches=dispatches)
+    _telemetry.counter("engine.pallas.launches", dispatches)
     times = torch.cat(times_chunks, dim=0).T   # [B, E]
     srcs = torch.cat(srcs_chunks, dim=0).T
     return carry, times, srcs, dispatches

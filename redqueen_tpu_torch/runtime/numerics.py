@@ -18,9 +18,9 @@ import numpy as np
 import torch
 
 __all__ = [
-    "safe_exp", "safe_log", "safe_log1p", "safe_div", "nan_to_posinf",
-    "require_float32", "DEFAULT_MAX_PROPOSALS",
-    "BIT_NONFINITE_TIME", "BIT_NONFINITE_STATE",
+    "safe_exp", "safe_log", "safe_log1p", "safe_div", "finite_or",
+    "nan_to_posinf", "require_float32", "DEFAULT_MAX_PROPOSALS",
+    "HEALTH_OK", "BIT_NONFINITE_TIME", "BIT_NONFINITE_STATE",
     "BIT_SAMPLER_FAILURE", "BIT_NONFINITE_RESULT", "HEALTH_BITS",
     "decode_health", "describe_health", "sick_lanes",
     "NumericalHealthError", "poison_lane", "POISON_MODES",
@@ -87,6 +87,11 @@ def safe_div(num: torch.Tensor, den: torch.Tensor,
     return torch.where(zero, torch.full_like(out, when_zero), out)
 
 
+def finite_or(x: torch.Tensor, fill: float) -> torch.Tensor:
+    """``x`` where finite, ``fill`` elsewhere (NaN and both infinities)."""
+    return torch.where(torch.isfinite(x), x, torch.full_like(x, fill))
+
+
 def nan_to_posinf(x: torch.Tensor) -> torch.Tensor:
     """NaN -> +inf, the engine's write-back sanitiser: +inf is the legal
     "never fires" clock, so a poisoned resample absorbs instead of
@@ -99,6 +104,8 @@ def nan_to_posinf(x: torch.Tensor) -> torch.Tensor:
 #: ones (a NaN or overflowed bound) reach it.
 DEFAULT_MAX_PROPOSALS = 1_000_000
 
+#: A healthy lane's word.
+HEALTH_OK = 0
 #: A NaN event time was selected, or a policy resample returned NaN.
 BIT_NONFINITE_TIME = 1 << 0
 #: A per-source state slice (Hawkes excitation) went non-finite.

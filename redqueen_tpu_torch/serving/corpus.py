@@ -4,8 +4,8 @@
 The ingest path is not only for synthetic streams: a real trace corpus
 replays through the sharded cluster on the card as
 
-    CSV corpus --load_csv(the Python engine: the native C++ loader is
-    ROADMAP.md Queue 1 item 10)-->
+    CSV corpus --load_csv(the native C++ loader where it builds, else
+    the Python engine)-->
     per-user traces --merge_traces (one global time-ordered event
     stream; ties keep user order, deterministically)-->
     corpus_batches (fixed-size sequence-numbered micro-batches)-->
@@ -99,9 +99,9 @@ def serve_corpus(csv_path: str, dir: Optional[str], n_shards: int,
                  queue_capacity: int = 64,
                  placement: str = "in-process", clock=time.monotonic,
                  log=None, device: DeviceLike = "cuda") -> dict:
-    """End-to-end corpus serving: load (the Python engine; ``"native"``
-    raises until the C++ loader is ported), merge, batch, and drive the
-    full stream through a sharded
+    """End-to-end corpus serving: load (``engine``: the native C++ loader
+    where it builds, for ``"auto"``), merge, batch, and drive the full
+    stream through a sharded
     :class:`~redqueen_tpu_torch.serving.cluster.ServingCluster` (submit+poll
     per batch — the steady-state serving shape, journal fsync in the
     measured path when ``dir`` is given).  ``placement="workers"``
@@ -111,15 +111,16 @@ def serve_corpus(csv_path: str, dir: Optional[str], n_shards: int,
     Returns the summary payload (also landed as ``<dir>/corpus.json``
     when ``dir`` is set)."""
     from ..data import traces as traces_mod
+    from ..native import loader as native_loader
     from .cluster import ServingCluster
 
     def _log(*a):
         if log is not None:
             log(*a)
 
-    # "auto" takes the Python engine: the native loader is not ported
-    # (load_csv raises for engine="native").
-    engine_used = "python"
+    engine_used = ("native" if (engine in ("auto", "native")
+                                and native_loader.available())
+                   else "python")
     t0 = clock()
     traces, stats = traces_mod.load_csv(csv_path, engine=engine,
                                         return_stats=True)

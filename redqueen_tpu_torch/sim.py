@@ -12,9 +12,9 @@ per step, and serves every contract: ``max_events``, ``return_state``,
 key-array seeds and every policy kind, the RMTPP neural policy
 included.  The fused engine
 (``ops/event_engine.py``) runs the hand-written CUDA event kernel on the
-card (its plain version on the CPU); ``engine="fused"`` forces it and
-``engine="auto"`` picks it where it covers the run (see
-:func:`select_engine`).
+card (its plain version on the CPU); ``engine="fused"`` (or the JAX
+package's name for it, ``"pallas"``) forces it and ``engine="auto"``
+picks it where it covers the run (see :func:`select_engine`).
 
 The scan engine runs chunks of ``cfg.capacity`` steps, up to
 ``sync_every`` of them (1 for the first) in one call of
@@ -43,13 +43,15 @@ from .ops.scan_core import RunChunk, init_state, make_run_chunk
 from .ops.threefry import MASK32
 from .runtime import faultinject as _faultinject
 from .runtime import numerics as _numerics
+from .runtime import telemetry as _telemetry
 from .runtime.numerics import NumericalHealthError
 
 __all__ = ["EventLog", "simulate", "simulate_batch", "resume",
            "select_engine", "init_state", "ENGINES", "NumericalHealthError"]
 
-#: What ``engine=`` takes.
-ENGINES = ("scan", "fused", "auto")
+#: What ``engine=`` takes; ``"pallas"`` is the JAX package's name of the
+#: fused engine and runs it.
+ENGINES = ("scan", "fused", "pallas", "auto")
 
 
 class EventLog:
@@ -232,14 +234,16 @@ def _superchunk(run: RunChunk, params, adj, state: SimState, consts, k: int):
     the card done (PERF.md section 5)."""
     end = run.cfg.end_time
     if k <= 0:
-        return state, None, None, 0, _device.host_read(
-            _alive(state, end).any())
+        with _telemetry.span("engine.scan.sync"):
+            return state, None, None, 0, _device.host_read(
+                _alive(state, end).any())
     times, srcs = [], []
     for _ in range(k):
         state, t_c, s_c = run(params, adj, state, consts)
         times.append(t_c)
         srcs.append(s_c)
-        alive_any = _device.host_read(_alive(state, end).any())
+        with _telemetry.span("engine.scan.sync"):
+            alive_any = _device.host_read(_alive(state, end).any())
         if not alive_any:
             break
     return (state, torch.cat(times, 1), torch.cat(srcs, 1), len(times),
@@ -257,23 +261,33 @@ def _drive(cfg: SimConfig, params: SourceParams, adj, state: SimState,
     times_parts, srcs_parts = [], []
     n_chunks = dispatches = 0
     k = 1
-    while True:
-        dispatches += 1
-        state, t_sc, s_sc, c, alive_any = _superchunk(
-            run, params, adj, state, consts, min(k, max_chunks - n_chunks))
-        k = sync_every
-        if c:
-            times_parts.append(t_sc)
-            srcs_parts.append(s_sc)
-        n_chunks += c
-        if not alive_any:
-            break
-        if n_chunks >= max_chunks:
-            raise RuntimeError(
-                f"simulation still active after {n_chunks} chunks of "
-                f"{cfg.capacity} events (events so far: "
-                f"{state.n_events.cpu().numpy()}); raise capacity or "
-                f"max_chunks — refusing to truncate silently")
+    # The JAX package's spans (``sim._drive``): the drive, each
+    # superchunk's enqueue and its liveness sync, and the dispatch count.
+    with _telemetry.span("engine.scan.drive", batched=True) as dsp:
+        try:
+            while True:
+                dispatches += 1
+                with _telemetry.span("engine.scan.superchunk") as ssp:
+                    ssp.set(k=k)
+                    state, t_sc, s_sc, c, alive_any = _superchunk(
+                        run, params, adj, state, consts,
+                        min(k, max_chunks - n_chunks))
+                k = sync_every
+                if c:
+                    times_parts.append(t_sc)
+                    srcs_parts.append(s_sc)
+                n_chunks += c
+                if not alive_any:
+                    break
+                if n_chunks >= max_chunks:
+                    raise RuntimeError(
+                        f"simulation still active after {n_chunks} chunks "
+                        f"of {cfg.capacity} events (events so far: "
+                        f"{state.n_events.cpu().numpy()}); raise capacity "
+                        f"or max_chunks — refusing to truncate silently")
+        finally:
+            dsp.set(dispatches=dispatches, chunks=n_chunks)
+    _telemetry.counter("engine.scan.dispatches", dispatches)
     B = state.t.shape[0]
     dev = state.t.device
     times = torch.cat(times_parts, 1) if times_parts else \
@@ -292,30 +306,33 @@ def _drive(cfg: SimConfig, params: SourceParams, adj, state: SimState,
 
 def select_engine(cfg: SimConfig, params: Optional[SourceParams] = None, *,
                   engine: str = "auto", max_events=None,
-                  return_state: bool = False, key_seeds: bool = False,
-                  sync_every: int = 8,
+                  return_state: bool = False, platform: Optional[str] = None,
+                  key_seeds: bool = False, sync_every: int = 8,
                   device: DeviceLike = "cuda") -> Tuple[str, Optional[str]]:
     """The engine a batch runs on -> ``(name, reason)``.
 
-    ``"scan"`` runs the scan engine.  ``"fused"`` forces the event kernel
-    and raises ``ValueError`` with the reason when it cannot run.
+    ``"scan"`` runs the scan engine.  ``"fused"`` (or ``"pallas"``, the
+    JAX package's name) forces the event kernel and raises ``ValueError``
+    with the reason when it cannot run; the name returned is ``"fused"``.
     ``"auto"`` picks the kernel when (a) it covers the policy mix
     (``event_engine.coverage``), (b) the shape fits it
     (``kernels.check_kernel_shape``, which needs ``params`` for the
     replay and piecewise widths), (c) no scan-only contract is asked for
     (``max_events``, ``return_state``, key-array seeds) and (d) the
-    device is the card; otherwise the scan engine, with ``reason`` saying
+    platform is the card: ``platform`` (``"cuda"``) where given, else
+    ``device``'s type; otherwise the scan engine, with ``reason`` saying
     why (``EventLog.engine_reason``)."""
     if engine not in ENGINES:
         raise ValueError(
-            f"unknown engine {engine!r} (choose scan, fused or auto)")
+            f"unknown engine {engine!r} (choose scan, fused, pallas or "
+            f"auto)")
     if engine == "scan":
         return "scan", None
-    forced = engine == "fused"
+    forced = engine in ("fused", "pallas")
 
     def fall(reason):
         if forced:
-            raise ValueError(f"engine='fused' requested but {reason}")
+            raise ValueError(f"engine={engine!r} requested but {reason}")
         return "scan", reason
 
     ok, why = coverage(cfg)
@@ -341,7 +358,9 @@ def select_engine(cfg: SimConfig, params: Optional[SourceParams] = None, *,
             kernels.check_kernel_shape(spec)
         except ValueError as e:
             return fall(str(e))
-    if not forced and torch.device(device).type != "cuda":
+    if platform is None:
+        platform = torch.device(device).type
+    if not forced and platform != "cuda":
         return "scan", ("the event kernel runs on the card — on the CPU "
                         "auto picks the scan engine (pass engine='fused' "
                         "to run the kernel's plain version)")
@@ -365,9 +384,9 @@ def simulate_batch(cfg: SimConfig, params: SourceParams, adj, seeds,
     ``max_events`` (scalar or [B]) stops each lane after exactly that
     many events.  ``return_state`` also returns the final ``SimState``
     (pass it to :func:`resume`).  ``engine`` is ``"scan"`` (default),
-    ``"fused"`` or ``"auto"`` (:func:`select_engine`).  ``device`` is
-    where the run happens, the card by default; the inputs are moved
-    there.  ``sync_every`` is the chunks per host sync (per kernel launch
+    ``"fused"`` (alias ``"pallas"``) or ``"auto"``
+    (:func:`select_engine`).  ``device`` is where the run happens, the
+    card by default; the inputs are moved there.  ``sync_every`` is the chunks per host sync (per kernel launch
     on the fused engine) and ``max_chunks`` the allowance of
     ``cfg.capacity``-event chunks before the run raises.  ``slab``
     dispatches the batch in consecutive ``slab``-lane pieces with
@@ -395,8 +414,17 @@ def simulate_batch(cfg: SimConfig, params: SourceParams, adj, seeds,
     _check_finite_params(cfg, params)
     _check_weights(cfg, params)
     if name == "fused":
+        _telemetry.event("engine.dispatch", engine="pallas",
+                         requested=engine)
+        _telemetry.counter("engine.dispatch.pallas")
         return simulate_fused(cfg, params, adj, seeds, max_chunks=max_chunks,
                               sync_every=sync_every, device=dev)
+    # The choice and, for an auto request that fell back, why: the fact
+    # EventLog.engine_reason carries, in the trace under the JAX
+    # package's names.
+    _telemetry.event("engine.dispatch", engine="scan", requested=engine,
+                     reason=reason)
+    _telemetry.counter("engine.dispatch.scan")
     keys = _as_keys(seeds, dev)
     B = keys.shape[0]
     state = _maybe_poison(init_state(cfg, params, adj, keys), B)

@@ -1,24 +1,12 @@
-"""Shared helpers of the smoke run's phases: the card's rates that the
-bounds divide by, the check that ends the run, and the CUDA-event
-timers."""
+"""Shared helpers of the smoke run's phases: the check that ends the
+run and the CUDA-event timers.  The card's rates that the bounds divide
+by are ``utils.roofline``'s."""
 
 import sys
 import time
 
 import torch
 
-
-# H100 SXM (NVIDIA data sheet and Hopper architecture paper): HBM3 at
-# 3.35 TB/s; 132 SMs at a 1.98 GHz boost clock.  Each SM issues at most
-# 128 thread-instructions a clock (four schedulers, one warp instruction
-# each), which is the float32 instruction rate: the data sheet's 67
-# TFLOP/s counts a fused multiply-add as two.  Integer instructions run
-# on 64 INT32 lanes per SM.  Every scalar operation takes an issue slot,
-# and every integer one an INT32 lane too; the bound takes the slower.
-HBM_BYTES_PER_S = 3.35e12
-SMS, CLOCK_HZ = 132, 1.98e9
-ISSUE_PER_S = SMS * 128 * CLOCK_HZ
-INT32_PER_S = SMS * 64 * CLOCK_HZ
 
 
 def fail(msg):

@@ -19,10 +19,8 @@ from redqueen_tpu_torch.ops.threefry import (
     to_bits32,
 )
 from redqueen_tpu_torch.runtime import faultinject, numerics
+from redqueen_tpu_torch.utils import roofline
 from .common import (
-    HBM_BYTES_PER_S,
-    INT32_PER_S,
-    ISSUE_PER_S,
     check,
     timed,
     timed_on_device,
@@ -327,7 +325,7 @@ def bound_for(prep, carry, n_launches):
     """Least time for the run's kernel work: bytes (each input read once,
     each output written once) over HBM bandwidth, and operations (counted
     from this run's events and react draws) over the issue rate, integer
-    ones over the INT32 rate, whichever is slower."""
+    ones over the INT32 rate, whichever is slower (``utils.roofline``)."""
     spec, B = prep.spec, prep.B
     S, F = spec.S, spec.F
     in_bytes = sum(t.numel() * t.element_size()
@@ -348,12 +346,9 @@ def bound_for(prep, carry, n_launches):
                                   (react_draws, OPS_REACT_DRAW)))
         for i in (0, 1))
     ops = int_ops + float_ops
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / ISSUE_PER_S, int_ops / INT32_PER_S) * 1e3
     return {"bytes": nbytes, "ops": ops, "int_ops": int_ops,
-            "float_ops": float_ops, "bytes_ms": t_bytes,
-            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "float_ops": float_ops,
+            **roofline.bound(nbytes, ops, int_ops),
             "events": events, "react_draws": react_draws,
             "lane_steps": steps}
 

@@ -9,7 +9,8 @@ import torch
 
 import redqueen_tpu_torch as rt
 from redqueen_tpu_torch.ops import kernels
-from .common import HBM_BYTES_PER_S, ISSUE_PER_S, check, sync
+from redqueen_tpu_torch.utils import roofline
+from .common import check, sync
 
 
 # experiments/closed_loop.py:48-61 (copied: that file imports the JAX
@@ -329,17 +330,15 @@ def corpus_chunks(corpus=CORPUS):
 def corpus_bound(ch, grad=False):
     """Least time of one pass over ``ch``: bytes (every input read once,
     every output written once) over HBM bandwidth, and the operations
-    this stream's events need over the float32 issue rate."""
+    this stream's events need over the float32 issue rate
+    (``utils.roofline``)."""
     C, K = ch.dt.shape
     D = ch.n_dims
     in_bytes = C * K * (4 + 4 + 1 + 4) + (2 * D + D * D) * 4
     out_bytes = (C * (1 + 3 * D + D * D) + D) * 4
     ops = ch.n_events * D * OPS_PASS[grad]
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ISSUE_PER_S * 1e3
-    return {"bytes": in_bytes + out_bytes, "ops": ops, "bytes_ms": t_bytes,
-            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return {"bytes": in_bytes + out_bytes, "ops": ops,
+            **roofline.bound(in_bytes + out_bytes, ops)}
 
 
 # The three launches of one pass, by the name the profiler gives each.

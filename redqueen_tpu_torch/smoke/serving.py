@@ -24,7 +24,8 @@ from redqueen_tpu_torch.ops.threefry import threefry2x32, uniform_from_bits
 from redqueen_tpu_torch.runtime import telemetry
 from redqueen_tpu_torch.serving import service as svc
 from redqueen_tpu_torch.serving import state as sstate
-from .common import HBM_BYTES_PER_S, check, sync
+from redqueen_tpu_torch.utils import roofline
+from .common import check, sync
 
 # The serving bench's settings (benchmarks/run.py:387-410, 480-503): a
 # 2,048-feed graph, 2,048 measured batches of 64 events (Poisson) after 8
@@ -72,7 +73,7 @@ def apply_bound_ms(n_feeds):
     it reads rank, health and s_sink (4 bytes an edge each) and writes the
     new rank and health, once each (the batch's events are noise beside
     them), over the HBM rate."""
-    return 20.0 * n_feeds / HBM_BYTES_PER_S * 1e3
+    return roofline.bound(20.0 * n_feeds)["bound_ms"]
 
 
 class _HostWait:

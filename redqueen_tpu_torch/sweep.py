@@ -8,11 +8,14 @@ A sweep point is one component; all points share one static config
 (shapes, kinds, horizon), while the parameters vary freely.
 :func:`run_sweep` runs ``GraphBuilder`` components on the batch engines,
 :func:`run_sweep_star` runs ``StarBuilder`` components on the star
-engine.  The checkpointed sweep and its healing of sick lanes wait for
-the runtime layer (ROADMAP.md Queue 1 item 7)."""
+engine.  :func:`run_sweep_checkpointed` runs either in chunks of points,
+each landing as a checksummed artifact, so that a killed sweep resumes
+bit-identically and a numerically sick lane re-runs alone."""
 
 from __future__ import annotations
 
+import hashlib
+import os
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -22,11 +25,16 @@ from . import device as _device
 from .config import stack_components
 from .device import DeviceLike, resolve_device
 from .parallel.bigf import simulate_star_batch, stack_star
+from .runtime import faultinject as _faultinject
+from .runtime import integrity as _integrity
 from .runtime import numerics as _numerics
+from .runtime import preempt as _preempt
+from .runtime.supervisor import heartbeat as _heartbeat
 from .sim import simulate_batch
 from .utils.metrics import feed_metrics_batch, num_posts
 
-__all__ = ["SweepResult", "run_sweep", "run_sweep_star"]
+__all__ = ["SweepResult", "run_sweep", "run_sweep_star",
+           "run_sweep_checkpointed"]
 
 _MESH_ITEM = "ROADMAP.md Queue 1 item 6 (mesh -> torch.distributed)"
 
@@ -101,7 +109,7 @@ def _reduce_to_grid(m, n_posts, P: int, n_seeds: int,
 
 
 def run_sweep(points: Sequence, n_seeds: int, src_index: int = 0,
-              metric_K: int = 1, seed0: int = 0, mesh=None,
+              metric_K: int = 1, seed0: int = 0, mesh=None, axis="data",
               max_chunks: int = 100, engine: str = "scan",
               device: DeviceLike = "cuda") -> SweepResult:
     """Run every sweep point across ``n_seeds`` Monte-Carlo seeds in one
@@ -111,7 +119,9 @@ def run_sweep(points: Sequence, n_seeds: int, src_index: int = 0,
     with EQUAL ``cfg``; ``src_index`` is the tracked broadcaster's row.
     Seeds are ``seed0 + arange(n_points * n_seeds)``, point-major, so
     appending points keeps the earlier points' streams.  ``engine`` goes
-    to ``simulate_batch`` (``"scan"``, ``"fused"`` or ``"auto"``)."""
+    to ``simulate_batch`` (``"scan"``, ``"fused"``/``"pallas"`` or
+    ``"auto"``).  ``mesh`` and ``axis`` keep the JAX package's positions;
+    a mesh raises until the mesh layer is ported."""
     if mesh is not None:
         raise NotImplementedError(
             f"sharded sweeps (mesh=) are not ported yet — {_MESH_ITEM}")
@@ -133,7 +143,8 @@ def run_sweep(points: Sequence, n_seeds: int, src_index: int = 0,
 
 
 def run_sweep_star(points: Sequence, n_seeds: int, metric_K: int = 1,
-                   seed0: int = 0, mesh=None, fire_mode: str = "auto",
+                   seed0: int = 0, mesh=None, axis: str = "data",
+                   feed_axis=None, fire_mode: str = "auto",
                    device: DeviceLike = "cuda") -> SweepResult:
     """The star-engine twin of :func:`run_sweep`: points are ``(cfg, wall,
     ctrl)`` triples from ``StarBuilder``, crossed with ``n_seeds`` into one
@@ -153,3 +164,149 @@ def run_sweep_star(points: Sequence, n_seeds: int, metric_K: int = 1,
                               device=dev)
     return _reduce_to_grid(res.metrics, res.n_posts, P, n_seeds)
 
+
+
+# Envelope schema tag of chunk artifacts (the JAX package's): bump on a
+# layout change, so that a resume after an upgrade recomputes instead of
+# misreading.
+_CHUNK_SCHEMA = "rq.sweep.chunk/2"
+
+
+def _heal_sick_lanes(chunk: SweepResult, pts, n_seeds: int,
+                     seed0_chunk: int, runner, ci: int, kwargs: dict):
+    """Re-run exactly the sick (point, seed) lanes of one chunk grid, each
+    as its own one-lane dispatch with the seed the point-major layout gave
+    it (``seed0_chunk + p * n_seeds + s``), and patch the healed values
+    in: a healed lane is bit-identical to an unfaulted run.  The re-run
+    runs inside a ``numeric_scope`` whose ``lane_base`` maps an
+    ``RQ_FAULT`` numeric spec onto the same logical lane, so a fault still
+    active keeps the lane sick, and its recorded bits stay.  Returns
+    ``(chunk, n_healed)``."""
+    sick = np.argwhere(np.asarray(chunk.health) != 0)
+    if sick.size == 0:
+        return chunk, 0
+    fields = {f: np.array(getattr(chunk, f)) for f in SweepResult._fields}
+    healed = 0
+    for p, s in sick:
+        p, s = int(p), int(s)
+        lane = p * n_seeds + s
+        try:
+            with _faultinject.numeric_scope(chunk=ci, lane_base=lane):
+                solo = runner([pts[p]], 1, seed0=seed0_chunk + lane,
+                              **kwargs)
+        except _numerics.NumericalHealthError:
+            continue  # the lane died again: its bits stay recorded
+        if int(np.asarray(solo.health)[0, 0]) != 0:
+            continue
+        for f in fields:
+            fields[f][p, s] = np.asarray(getattr(solo, f))[0, 0]
+        healed += 1
+    return SweepResult(**fields), healed
+
+
+def _leaf_arrays(x):
+    """Every tensor of a component's params (a dataclass of tensors, a
+    dict of RMTPP weights, or one tensor), in a fixed order."""
+    if isinstance(x, torch.Tensor):
+        yield x.detach().cpu().numpy()
+    elif isinstance(x, dict):
+        for k in sorted(x):
+            yield from _leaf_arrays(x[k])
+    elif hasattr(x, "__dataclass_fields__"):
+        for f in x.__dataclass_fields__:
+            v = getattr(x, f)
+            if v is not None:
+                yield from _leaf_arrays(v)
+    elif x is not None:
+        yield np.asarray(x)
+
+
+def _chunk_fingerprint(chunk_idx: int, pts, n_seeds: int, seed0_chunk: int,
+                       star: bool, kwargs: dict) -> str:
+    """Content hash of everything that decides a chunk's result: the
+    static config, every parameter byte, the seed layout and the sweep's
+    options.  A resumed sweep reuses a stored chunk only when its inputs
+    are bit-identical.  The hash covers ``repr(cfg)`` and the keyword
+    arguments (``device`` among them), so it differs from the JAX
+    package's: a chunk that package wrote is recomputed, never trusted."""
+    h = hashlib.sha256()
+    h.update(repr((chunk_idx, n_seeds, seed0_chunk, star,
+                   sorted((k, str(v)) for k, v in kwargs.items()),
+                   pts[0][0])).encode())
+    for _, a, b in pts:
+        for arr in (*_leaf_arrays(a), *_leaf_arrays(b)):
+            h.update(str((arr.dtype, arr.shape)).encode())
+            h.update(arr.tobytes())
+    return h.hexdigest()[:16]
+
+
+def run_sweep_checkpointed(points: Sequence, n_seeds: int, ckpt_dir: str,
+                           chunk_points: int = 8, star: bool = False,
+                           seed0: int = 0, **kwargs) -> SweepResult:
+    """A restartable sweep: the points run in chunks of ``chunk_points``,
+    each chunk's [p, n_seeds] grids landing in ``ckpt_dir`` as one
+    atomically renamed, checksummed ``.npz`` (``runtime.integrity``)
+    keyed by a fingerprint of the chunk's inputs.  Run again with the same
+    arguments, it recomputes only the missing chunks; a chunk whose
+    inputs changed recomputes and is overwritten; a chunk that fails
+    verification (truncated, bit-flipped, forged checksum) is quarantined
+    (``*.corrupt-<ts>`` and a report) and recomputes.
+
+    A lane that went numerically sick (its health word non-zero) is
+    recorded in the chunk's ``health`` grid and re-run alone with its own
+    seed (:func:`_heal_sick_lanes`); a lane still sick keeps its bits for
+    the next resume.
+
+    The grids are bit-identical to one ``run_sweep``/``run_sweep_star``
+    call: the chunk starting at point p0 uses ``seed0 + p0 * n_seeds``,
+    the point-major seeds the whole sweep gives those lanes.  ``star``
+    selects the star engine; ``kwargs`` go to the sweep (``device``,
+    ``engine`` ...).  After each chunk lands the sweep heartbeats to a
+    supervisor and honours a pending SIGTERM/SIGINT
+    (``runtime.preempt``): a preempted sweep resumes from its chunks."""
+    points, _ = _validate_points(
+        points, n_seeds, "Wall/CtrlParams" if star else "SourceParams")
+    if chunk_points < 1:
+        raise ValueError(f"chunk_points must be >= 1, got {chunk_points}")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    runner = run_sweep_star if star else run_sweep
+    grids = []
+    for ci, p0 in enumerate(range(0, len(points), chunk_points)):
+        pts = points[p0:p0 + chunk_points]
+        seed0_chunk = seed0 + p0 * n_seeds
+        fp = _chunk_fingerprint(ci, pts, n_seeds, seed0_chunk, star, kwargs)
+        path = os.path.join(ckpt_dir, f"chunk_{ci:05d}.npz")
+        chunk = None
+        if os.path.exists(path):
+            try:
+                z = _integrity.load_npz(path, schema=_CHUNK_SCHEMA,
+                                        quarantine_schema_mismatch=False)
+            except _integrity.CorruptArtifactError:
+                # Quarantined by load_npz (a valid archive of an older
+                # schema is not: stale is not corrupt); it recomputes.
+                pass
+            except OSError:
+                pass  # unreadable for another reason: recompute
+            else:
+                if (str(z.get("fingerprint")) == fp
+                        and all(f in z for f in SweepResult._fields)):
+                    chunk = SweepResult(*(z[f] for f in SweepResult._fields))
+        fresh = chunk is None
+        if fresh:
+            # RQ_FAULT=numeric:mode@laneN,chunkM addresses lanes per chunk;
+            # the scope is a no-op without a numeric fault.
+            with _faultinject.numeric_scope(chunk=ci):
+                chunk = runner(pts, n_seeds, seed0=seed0_chunk, **kwargs)
+        chunk, healed = _heal_sick_lanes(
+            chunk, pts, n_seeds, seed0_chunk, runner, ci, kwargs)
+        if fresh or healed:
+            _integrity.savez(
+                path, schema=_CHUNK_SCHEMA, fingerprint=fp,
+                **{f: getattr(chunk, f) for f in SweepResult._fields})
+        grids.append(chunk)
+        # The chunk boundary is the durable safe point.
+        _heartbeat()
+        _preempt.check_preempt(f"run_sweep_checkpointed chunk {ci}")
+    return SweepResult(*(
+        np.concatenate([getattr(g, f) for g in grids], axis=0)
+        for f in SweepResult._fields))

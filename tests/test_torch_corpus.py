@@ -75,8 +75,9 @@ def test_load_csv_refuses_nan_and_the_native_engine(tmp_path):
         jtraces.load_csv(path, engine="python")
     with pytest.raises(ttraces.TraceOrderError, match="line 2"):
         ttraces.load_csv(path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ttraces.load_csv(_csv(tmp_path), engine="native")
+    # the native engine refuses the NaN row as the Python one does
+    with pytest.raises(ttraces.TraceOrderError, match="line 2"):
+        ttraces.load_csv(path, engine="native")
     with pytest.raises(ValueError, match="unknown engine"):
         ttraces.load_csv(path, engine="rust")
 
@@ -109,7 +110,7 @@ def test_serve_corpus_at_two_shards_matches_the_reference(tmp_path):
     pj = jcorpus.serve_corpus(path, str(tmp_path / "jax"), engine="python",
                               **kw)
     pt = tcorpus.serve_corpus(path, str(tmp_path / "torch"), device="cpu",
-                              **kw)
+                              engine="python", **kw)
     for k in ("loader_engine", "corpus_rows", "corpus_users",
               "duplicate_timestamps", "non_monotonic_rows", "rows_served",
               "rows_truncated", "n_shards", "n_batches", "batch_events",
@@ -133,7 +134,7 @@ def test_corpus_cli_serves_on_the_cpu_when_asked(tmp_path):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr[-2000:]
     payload = json.loads(out.stdout.strip().splitlines()[-1])
-    assert payload["loader_engine"] == "python"
+    assert payload["loader_engine"] == "native"  # "auto" where g++ builds
     assert payload["rows_served"] == sum(len(t) for t in _traces())
     assert payload["reconciles"] is True
 

@@ -594,3 +594,33 @@ def test_cluster_reshard_on_card(card):
     out = chip_smoke.reshard_offline(card, smoke_cluster.bench_stream(256, 32),
                                      n_feeds=256)
     assert out["to"] == 2 and out["seq"] == 32 + 8 - 1
+
+
+def test_supervised_checkpointed_sweep_on_card(card, tmp_path, monkeypatch):
+    """Phase 12 (a) at 192 lanes a half: the supervised checkpointed
+    trade-off experiment on the event kernel, SIGTERMed after its first
+    chunk, resumed bit for bit, reported as a card run, its launches
+    counted by the wrapper and by ``engine.pallas.launches``; the corrupt
+    chunk recomputed alone."""
+    from redqueen_tpu_torch.smoke import runtime as R
+
+    monkeypatch.delenv("RQ_FAULT", raising=False)
+    settings = dict(q_grid=(0.1, 1.0, 10.0), n_seeds=64, F=10, T=100.0,
+                    wall_rate=1.0)
+    out, ref = R.supervised_sweep(card, settings, str(tmp_path))
+    assert out["backend_used"] == "cuda" and out["child"]["platform"] == \
+        "cuda"
+    assert out["child"]["event_kernel_launches"] == \
+        out["child"]["pallas_launches"] > 0
+    assert out["uninterrupted_launches"] > 0
+    assert ref[0].n_posts.shape == ref[1].n_posts.shape == (3, 64)
+
+
+def test_native_loader_on_the_card_machine(card, tmp_path):
+    """Phase 12 (f) at 2,000 users: built with g++ there, equal to the
+    Python engine."""
+    from redqueen_tpu_torch.smoke import runtime as R
+
+    out = R.native_load(str(tmp_path), dict(seed=5, n_users=2000,
+                                            end_time=10.0))
+    assert out["rows"] > 10_000 and out["native_rows_per_s"] > 0

@@ -142,6 +142,56 @@ PAIRS.update({
     "RetryPolicy.delay": (jsupervisor.RetryPolicy.delay,
                           tsupervisor.RetryPolicy.delay),
 })
+# The runtime and experiments slice: engine choice, sweeps, the
+# supervisor and watchdog, the rest of the traces layer, and each
+# experiment's ``run`` (the port adds its keywords, ``device`` last).
+import os as _os  # noqa: E402
+import sys as _sys  # noqa: E402
+
+_sys.path.insert(0, _os.path.dirname(_os.path.dirname(
+    _os.path.abspath(__file__))))
+from experiments import closed_loop as jx_closed_loop  # noqa: E402
+from experiments import compare_policies as jx_compare  # noqa: E402
+from experiments import live_swap as jx_live_swap  # noqa: E402
+from experiments import rank_timeline as jx_rank  # noqa: E402
+from experiments import tradeoff as jx_tradeoff  # noqa: E402
+from redqueen_tpu import sweep as jsweep  # noqa: E402
+from redqueen_tpu.runtime import watchdog as jwatchdog  # noqa: E402
+from redqueen_tpu_torch import sweep as tsweep  # noqa: E402
+from redqueen_tpu_torch.experiments import (  # noqa: E402
+    closed_loop as tx_closed_loop, compare_policies as tx_compare,
+    live_swap as tx_live_swap, rank_timeline as tx_rank,
+    tradeoff as tx_tradeoff)
+from redqueen_tpu_torch.runtime import watchdog as twatchdog  # noqa: E402
+
+PAIRS.update({
+    "sim.select_engine": (jsim.select_engine, tsim.select_engine),
+    "sweep.run_sweep": (jsweep.run_sweep, tsweep.run_sweep),
+    "sweep.run_sweep_star": (jsweep.run_sweep_star, tsweep.run_sweep_star),
+    "sweep.run_sweep_checkpointed": (jsweep.run_sweep_checkpointed,
+                                     tsweep.run_sweep_checkpointed),
+    "Supervisor.__init__": (jsupervisor.Supervisor.__init__,
+                            tsupervisor.Supervisor.__init__),
+    "Supervisor.run": (jsupervisor.Supervisor.run,
+                       tsupervisor.Supervisor.run),
+    "run_resilient": (jsupervisor.run_resilient, tsupervisor.run_resilient),
+    "supervised_run": (jsupervisor.supervised_run,
+                       tsupervisor.supervised_run),
+    "Watchdog.__init__": (jwatchdog.Watchdog.__init__,
+                          twatchdog.Watchdog.__init__),
+    "Lease.__init__": (jwatchdog.Lease.__init__, twatchdog.Lease.__init__),
+    "experiments.tradeoff.run": (jx_tradeoff.run, tx_tradeoff.run),
+    "experiments.compare_policies.run": (jx_compare.run, tx_compare.run),
+    "experiments.rank_timeline.run": (jx_rank.run, tx_rank.run),
+    "experiments.rank_timeline.rank_steps": (jx_rank.rank_steps,
+                                             tx_rank.rank_steps),
+    "experiments.closed_loop.run": (jx_closed_loop.run, tx_closed_loop.run),
+    "experiments.live_swap.run": (jx_live_swap.run, tx_live_swap.run),
+})
+PAIRS.update({f"traces.{n}": (getattr(jtraces, n), getattr(ttraces, n))
+              for n in ("save_npz", "load_npz", "normalize_traces",
+                        "bucket_traces", "replay_buckets")})
+
 # Where the port adds a parameter to a cluster entry point, it is
 # ``device``, and it comes last.
 _DEVICE_LAST = ("ServingCluster.__init__", "ServingCluster.recover",
@@ -275,3 +325,73 @@ def test_dispatch_hook_replaces_the_per_slab_dispatch(fn):
     w = out.srcs.shape[1]
     assert torch.equal(out.srcs, whole.srcs[:, :w])
     assert bool((whole.srcs[:, w:] == -1).all())
+
+
+def test_experiment_runs_add_device_last():
+    for name in ("experiments.tradeoff.run", "experiments.compare_policies.run",
+                 "experiments.rank_timeline.run",
+                 "experiments.closed_loop.run", "experiments.live_swap.run",
+                 "traces.replay_buckets"):
+        assert list(inspect.signature(PAIRS[name][1]).parameters)[-1] == \
+            "device", name
+
+
+def _fused_component():
+    gb = rt.GraphBuilder(n_sinks=3, end_time=6.0)
+    gb.add_opt(q=1.0)
+    for i in range(3):
+        gb.add_poisson(rate=1.0, sinks=[i])
+    cfg, p, a = gb.build(capacity=32, device="cpu")
+    return (cfg, *rt.stack_components([p] * 4, [a] * 4))
+
+
+def test_engine_pallas_is_the_fused_engine():
+    """The JAX package's name of the fused engine runs it: the same
+    EventLog as ``engine="fused"`` (its plain version on the CPU)."""
+    cfg, P, A = _fused_component()
+    a = rt.simulate_batch(cfg, P, A, np.arange(4), engine="pallas",
+                          device="cpu")
+    b = rt.simulate_batch(cfg, P, A, np.arange(4), engine="fused",
+                          device="cpu")
+    assert a.engine == b.engine == "plain"
+    for f in ("times", "srcs", "n_events", "health"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert a.dispatches == b.dispatches
+    with pytest.raises(ValueError, match="engine='pallas' requested"):
+        rt.simulate_batch(cfg, P, A, np.arange(4), engine="pallas",
+                          max_events=3, device="cpu")
+
+
+@pytest.mark.parametrize("platform,want", [("cuda", "fused"),
+                                           ("cpu", "scan"), ("tpu", "scan")])
+def test_select_engine_takes_platform(platform, want):
+    cfg, P, _ = _fused_component()
+    got, reason = rt.select_engine(cfg, P, engine="auto", platform=platform,
+                                   device="cpu")
+    assert got == want and (reason is None) == (want == "fused")
+    assert rt.select_engine(cfg, P, engine="pallas",
+                            platform=platform) == ("fused", None)
+
+
+def test_sweep_axis_binds_in_the_reference_position():
+    """``run_sweep(points, n, src, K, seed0, mesh, axis, max_chunks,
+    engine)``: a positional ``max_chunks`` lands in ``max_chunks``."""
+    gb = rt.GraphBuilder(n_sinks=2, end_time=30.0)
+    gb.add_opt(q=1.0)
+    gb.add_poisson(rate=1.0, sinks=[0])
+    gb.add_poisson(rate=1.0, sinks=[1])
+    pts = [gb.build(capacity=8, device="cpu")]
+    with pytest.raises(RuntimeError, match="still active after 1 chunks"):
+        tsweep.run_sweep(pts, 1, 0, 1, 0, None, "data", 1, "scan",
+                         device="cpu")
+    ok = tsweep.run_sweep(pts, 1, 0, 1, 0, None, "data", 100, "pallas",
+                          device="cpu")
+    assert ok.n_posts.shape == (1, 1)
+    sb = rt.StarBuilder(n_feeds=2, end_time=5.0)
+    sb.wall_poisson(0, 1.0)
+    sb.wall_poisson(1, 1.0)
+    sb.ctrl_opt(q=1.0)
+    star = [sb.build(wall_cap=32, post_cap=64, device="cpu")]
+    got = tsweep.run_sweep_star(star, 2, 1, 0, None, "data", None,
+                                "doubling", device="cpu")
+    assert got.n_posts.shape == (1, 2)
