@@ -177,13 +177,26 @@ Phases, each reported on its own line:
    rows loaded by both engines, equal; (g) the card's liveness probe and
    ``ensure_backend``.
 
+13. the mesh layer (``parallel.comm``/``shard``/``multihost``) on the
+   card, in at most 90 s: (a) a world of one rank on NCCL, the headline
+   (B = 10,000) through ``simulate_sharded`` on ``{"data": 1}``, every
+   lane bit-identical to the unsharded scan run, no event-kernel launch,
+   both timed; two ranks sharing the card over gloo (child processes
+   started with the ``RQ_*`` environment): (b) 5,000 lanes a rank
+   gathered bit for bit equal to (a), and ``run_sweep`` on the trade-off
+   q grid equal to its unsharded grid; (c) config 4 at full settings on
+   ``{"feed": 2}``, bit for bit the unsharded loop-mode run, its fires
+   split into local work and ``pmin`` collectives; (d) config 2 over
+   lanes and over lanes x feeds; (e) ``run_preset`` of config 1 at
+   1,024 seeds on ``{"data": 2}``.
+
 Every event-kernel comparison holds every lane bit-identical: ``srcs``,
 ``n_events``, health, counters and ``times``.
 
 The phases' bodies live in ``redqueen_tpu_torch/smoke/``, one module per
 group (``fused``: 1-5, ``scan``: 6, ``presets``: 7, ``config5``: 8,
-``learn``: 9, ``serving``: 10, ``cluster``: 11, ``runtime``: 12, and
-``common``); this script runs them in order.
+``learn``: 9, ``serving``: 10, ``cluster``: 11, ``runtime``: 12,
+``mesh``: 13, and ``common``); this script runs them in order.
 
 Any failed check exits non-zero.  The last three lines are JSON: every
 measurement of the run (``{"measurements": {...}}``), the kernel table
@@ -294,6 +307,7 @@ from redqueen_tpu_torch.smoke.cluster import (
 from redqueen_tpu_torch.smoke.cluster import \
     card_against_cpu as cluster_card_against_cpu
 from redqueen_tpu_torch.smoke.runtime import phase_runtime
+from redqueen_tpu_torch.smoke.mesh import phase_mesh
 
 
 def main():
@@ -318,15 +332,18 @@ def main():
     result["cluster"] = cl = phase_cluster(dev)
     result["runtime"] = ph12 = phase_runtime(dev)
     print(json.dumps({"runtime": ph12}))
+    result["mesh"] = ph13 = phase_mesh(dev)
     n_launch = len(hl["kernel_ms_per_launch"])
     row = {
         "name": "event_kernel", "route": "cuda",
         "source": "redqueen_tpu_torch/csrc/event_kernel.cu",
         "replaces": "redqueen_tpu/ops/pallas_engine.py:311",
         "launches": (hl["launches"]["event_kernel"]
-                     + ph12["launches"]["event_kernel"]),
+                     + ph12["launches"]["event_kernel"]
+                     + ph13["launches"]["event_kernel"]),
         "launches_by_phase": {"5": hl["launches"]["event_kernel"],
-                              "12": ph12["launches"]["event_kernel"]},
+                              "12": ph12["launches"]["event_kernel"],
+                              "13": ph13["launches"]["event_kernel"]},
         "max_abs_err": hl["parity"]["max_abs_err"],
         "ms": hl["kernel_ms_mean"],
         "ms_with_host": hl["kernel_with_host_ms_mean"],
@@ -342,7 +359,8 @@ def main():
         "replaces": "redqueen_tpu/learn/loglik.py:125 (lax.scan; no Pallas "
                     "kernel)",
         "launches": (ln["launches"] + sv["launches"] + cl["launches"]
-                     + ph12["launches"]["hawkes_pass"]),
+                     + ph12["launches"]["hawkes_pass"]
+                     + ph13["launches"]["hawkes_pass"]),
         "max_abs_err": max([r["max_abs_err"]
                             for r in ln["parity"].values()]
                            + [c["cross"]["max_abs_err"]]),

@@ -24,8 +24,10 @@ and step 2 is skipped.  Overflow of a wall or post buffer raises.
 
 This module is the import surface; the code lives in ``star_types``,
 ``star_streams``, ``star_fire``, ``star_metrics``, ``star_run`` and
-``star_builder``.  Every tensor is PyTorch on the run's device; there is
-no mesh yet (ROADMAP.md Queue 1 item 6)."""
+``star_builder``.  Every tensor is PyTorch on the run's device.  With a
+mesh (``parallel.comm``), the lanes split over a batch axis and each
+lane's feeds over the ``"feed"`` axis: every rank samples and ranks its
+own feeds, and each post is the ``pmin`` of the ranks' candidates."""
 
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ from .star_types import (
     _EMPTY,
     CtrlParams,
     RecordBudgetOverflow,
+    ShardedFeedMetrics,
     StarBatchResult,
     StarConfig,
     StarResult,

@@ -18,6 +18,7 @@ import torch
 
 from .. import device as _device
 from ..ops import prng
+from . import comm
 from .star_types import StarConfig
 
 __all__ = ["_rec_cap", "_opt_fires", "_fires_by_doubling",
@@ -36,7 +37,8 @@ def _resolve_fire_mode(fire_mode: str, feed_sharded: bool = False,
                        device="cuda") -> str:
     """``"auto"`` -> the concrete mode, before any kernel cache is keyed:
     doubling on the card, the loop on the CPU (where the loop does about
-    10x less work), as the JAX engine picks for its backends."""
+    10x less work) and on a sharded feed axis (its one ``pmin`` a post
+    keeps the records on their rank), as the JAX engine picks."""
     if fire_mode != "auto":
         return fire_mode
     return ("loop" if feed_sharded or torch.device(device).type == "cpu"
@@ -106,7 +108,7 @@ def _opt_fires(cfg: StarConfig, feed_times, rate_f, key_tau, feed_offset=0,
         mask = cand < suf_after                  # +inf cands never qualify
         n_rec = mask.sum(-1)
         R = _rec_cap(E)
-        rec_trunc = (n_rec > R).reshape(B, -1).any(-1)
+        rec_trunc = comm.pany((n_rec > R).reshape(B, -1).any(-1), "feed")
         pos = torch.clamp(torch.cumsum(mask.to(torch.int32), -1) - 1,
                           0, R - 1).long()
         val_t = torch.where(mask, feed_times, torch.full_like(cand, inf))
@@ -124,8 +126,9 @@ def _opt_fires(cfg: StarConfig, feed_times, rate_f, key_tau, feed_offset=0,
     suffix = torch.cat([_suffix_min(c_sorted),
                         torch.full((B, 1), inf, dtype=dtype, device=dev)], -1)
 
-    _check_fire_mode(fire_mode)
-    if _resolve_fire_mode(fire_mode, device=dev) == "doubling":
+    sharded = comm.axis_present("feed")
+    _check_fire_mode(fire_mode, feed_sharded=sharded)
+    if _resolve_fire_mode(fire_mode, sharded, dev) == "doubling":
         own, truncated = _fires_by_doubling(cfg, t_sorted, suffix)
     else:
         own, truncated = _fires_by_loop(cfg, t_sorted, suffix)
@@ -136,7 +139,9 @@ def _fires_by_loop(cfg: StarConfig, t_sorted, suffix):
     """The posting trajectory one post at a time for every lane, as the
     JAX engine's ``while_loop`` under ``vmap``: a lane whose last post is
     +inf or whose buffer is full stops moving; the host checks for a
-    moving lane once every :data:`LOOP_PROBE_EVERY` posts."""
+    moving lane once every :data:`LOOP_PROBE_EVERY` posts.  On a sharded
+    feed axis each post is the ``pmin`` of the ranks' candidates, so every
+    rank holds the same posts and takes the same branches."""
     B, N = t_sorted.shape
     Kp = cfg.post_cap
     dev = t_sorted.device
@@ -155,7 +160,7 @@ def _fires_by_loop(cfg: StarConfig, t_sorted, suffix):
         for _ in range(LOOP_PROBE_EVERY):
             go = moving()
             idx = torch.searchsorted(t_sorted, t_last, right=True)
-            t_next = torch.gather(suffix, 1, idx)
+            t_next = comm.pmin(torch.gather(suffix, 1, idx), "feed")
             t_next = torch.where(t_next <= end, t_next, inf)
             slot = torch.clamp(n, max=Kp - 1)
             buf.scatter_(1, slot, torch.where(go, t_next,
@@ -164,7 +169,7 @@ def _fires_by_loop(cfg: StarConfig, t_sorted, suffix):
             t_last = torch.where(go, t_next, t_last)
     # Overflow: a further post would still fit before the horizon.
     idx = torch.searchsorted(t_sorted, t_last, right=True)
-    more = torch.gather(suffix, 1, idx) <= end
+    more = comm.pmin(torch.gather(suffix, 1, idx), "feed") <= end
     truncated = (torch.isfinite(t_last) & more)[:, 0]
     return buf, truncated
 

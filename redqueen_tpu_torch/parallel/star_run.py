@@ -5,13 +5,16 @@ counterpart of ``redqueen_tpu.parallel.star_run``.
 
 The kernel is written batched over lanes ``[B]`` (the JAX engine's
 ``vmap`` of its one-component kernel); ``simulate_star`` runs it on one
-lane.  There is no mesh yet: the JAX kernel's collectives over the
-``feed`` axis (``pany``, ``pmin``, ``axis_present``) are identities
-without one, and a ``mesh=`` raises."""
+lane.  With a mesh, each rank runs the kernel on its block: lanes split
+over the batch axis, feeds over the ``"feed"`` axis.  The kernel's
+collectives over ``"feed"`` (``comm.pany``, ``comm.pmin``, the global
+feed offset) are identities unless that axis is bound, and the outputs
+that split are marked as sharded (``comm.mark``)."""
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,12 +24,14 @@ from ..models.base import KIND_OPT, map_weights
 from ..ops import prng
 from ..sim import _as_keys
 from ..utils.metrics import FeedMetrics
+from . import comm
 from .star_fire import _check_fire_mode, _opt_fires, _resolve_fire_mode
 from .star_metrics import _feed_metrics_star
 from .star_streams import _check_wall_kinds, _ctrl_stream, _wall_streams
 from .star_types import (
     CtrlParams,
     RecordBudgetOverflow,
+    ShardedFeedMetrics,
     StarBatchResult,
     StarConfig,
     StarResult,
@@ -35,16 +40,6 @@ from .star_types import (
 
 __all__ = ["simulate_star", "simulate_star_batch", "stack_star",
            "broadcast_star"]
-
-_MESH_ITEM = "ROADMAP.md Queue 1 item 6 (mesh -> torch.distributed)"
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"follower- and batch-sharded star runs (mesh=) are not ported "
-            f"yet — {_MESH_ITEM}")
-
 
 def _make_kernel(cfg: StarConfig, metric_K: int, compress: bool = True,
                  fire_mode: str = "auto"):
@@ -55,24 +50,27 @@ def _make_kernel(cfg: StarConfig, metric_K: int, compress: bool = True,
     def kernel(wall: WallParams, ctrl: CtrlParams, keys: torch.Tensor):
         B, Fl, M = wall.kind.shape
         dev = keys.device
+        feed_offset = comm.axis_index("feed") * Fl
         key_wall = prng.fold_in(keys, 101)
         key_tau = prng.fold_in(keys, 202)
         key_own = prng.fold_in(keys, 303)
 
         # 1) independent wall streams, one key per global slot f*M + m.
-        slot = torch.arange(Fl * M, device=dev).reshape(Fl, M)
+        slot = (feed_offset * M
+                + torch.arange(Fl * M, device=dev).reshape(Fl, M))
         slot_keys = prng.fold_in(key_wall[:, None, None, :], slot[None])
         st = _wall_streams(cfg, wall, slot_keys)
         feed_times = torch.sort(st.times.reshape(B, Fl, -1), dim=-1).values
         wall_n = st.n.sum(-1).to(torch.int32)
-        wall_trunc = st.truncated.reshape(B, -1).any(-1)
+        wall_trunc = comm.pany(st.truncated.reshape(B, -1).any(-1), "feed")
 
         # 2) the controlled broadcaster's posting times.
         if cfg.ctrl_kind == KIND_OPT:
             rate_f = torch.sqrt(wall.s_sink / torch.clamp(
                 ctrl.q, min=1e-30)[:, None])
             own, post_trunc, rec_trunc = _opt_fires(
-                cfg, feed_times, rate_f.to(feed_times.dtype), key_tau, 0,
+                cfg, feed_times, rate_f.to(feed_times.dtype), key_tau,
+                feed_offset,
                 compress=compress, fire_mode=fire_mode)
         else:
             s = _ctrl_stream(cfg, ctrl, key_own)
@@ -92,10 +90,10 @@ _FN_CACHE: dict = {}
 
 
 def _get_fn(cfg: StarConfig, metric_K: int, compress: bool, fire_mode: str,
-            device: torch.device):
+            device: torch.device, feed_sharded: bool = False):
     """The kernel cache, keyed on everything the kernel closes over, with
-    ``"auto"`` resolved for the device first."""
-    fire_mode = _resolve_fire_mode(fire_mode, device=device)
+    ``"auto"`` resolved for the device and the feed layout first."""
+    fire_mode = _resolve_fire_mode(fire_mode, feed_sharded, device)
     key = (cfg, metric_K, compress, fire_mode)
     fn = _FN_CACHE.get(key)
     if fn is None:
@@ -121,29 +119,37 @@ def _regime_key(ctrl: CtrlParams, wall: WallParams):
 
 
 def _run_with_fallback(cfg: StarConfig, metric_K: int, ctrl: CtrlParams,
-                       wall: WallParams, run):
+                       wall: WallParams, run, lane_sum=None):
     """Run compressed first, then uncompressed on ``RecordBudgetOverflow``
-    (and remember the regime).  ``run(compress) -> kernel outputs``."""
+    (and remember the regime).  ``run(compress) -> kernel outputs``;
+    ``lane_sum`` totals the flag counts over the ranks that split the
+    lanes, so that every rank takes the same branch."""
     key = (cfg, metric_K, _regime_key(ctrl, wall))
     if key not in _COMPRESS_BLOCKLIST:
         try:
             out = run(True)
-            _check_overflow(cfg, out[5], out[6], out[7])
+            _check_overflow(cfg, out[5], out[6], out[7], lane_sum)
             return out
         except RecordBudgetOverflow:
             _COMPRESS_BLOCKLIST.add(key)
     out = run(False)
-    _check_overflow(cfg, out[5], out[6])
+    _check_overflow(cfg, out[5], out[6], lane_sum=lane_sum)
     return out
 
 
-def _check_overflow(cfg: StarConfig, wall_trunc, post_trunc, rec_trunc=None):
+def _check_overflow(cfg: StarConfig, wall_trunc, post_trunc, rec_trunc=None,
+                    lane_sum=None):
     """Raise, never truncate, when a lane's buffers filled.  ``rec_trunc``
     first: a record-budget overflow corrupts the compressed path's last
-    slot and can fill the post buffer spuriously.  One host read."""
+    slot and can fill the post buffer spuriously.  One host read.  The
+    flags are the same on every rank of a feed axis (reduced in the
+    kernel); ``lane_sum`` adds them up over a lane axis."""
     flags = [wall_trunc, post_trunc] + ([rec_trunc] if rec_trunc is not None
                                         else [])
-    counts = torch.stack([f.reshape(-1).sum() for f in flags]).tolist()
+    counts = torch.stack([f.reshape(-1).sum() for f in flags])
+    if lane_sum is not None:
+        counts = lane_sum(counts)
+    counts = counts.tolist()
     n_wall, n_post = counts[0], counts[1]
     if rec_trunc is not None and counts[2]:
         raise RecordBudgetOverflow(
@@ -163,35 +169,89 @@ def _check_overflow(cfg: StarConfig, wall_trunc, post_trunc, rec_trunc=None):
             f"(refusing to truncate silently)")
 
 
+def _feed_axis_name(axis):
+    """The kernel's collectives bind to the axis NAME ``"feed"``; any other
+    name would skip the reduction and corrupt the results."""
+    if axis != "feed":
+        raise ValueError(f"the follower mesh axis must be named 'feed', got "
+                         f"{axis!r} (kernel collectives bind to the name)")
+
+
+def _check_divides(n: int, what: str, mesh, axis):
+    size = mesh.shape[axis]
+    if n % size:
+        raise ValueError(f"{what}={n} not divisible by mesh axis "
+                         f"{axis}={size}")
+
+
+def _sharded_metrics(m: FeedMetrics, mesh, lane_axis, feed_axis, lane=None):
+    """The kernel's per-feed metrics marked over the mesh: per-feed fields
+    by ``(lane_axis, feed_axis)``, the window by ``lane_axis``; ``lane``
+    picks one lane (the unbatched result)."""
+    pick = (lambda x: x[lane]) if lane is not None else (lambda x: x)
+    lead = () if lane is not None else (lane_axis,)
+    per_feed = comm.P(*lead, feed_axis)
+    window = comm.P(*lead)
+    return ShardedFeedMetrics(
+        *(comm.mark(pick(x), mesh, per_feed) for x in m[:4]),
+        *(comm.mark(pick(x), mesh, window) for x in m[4:]))
+
+
 def simulate_star(cfg: StarConfig, wall: WallParams, ctrl: CtrlParams,
-                  seed, mesh=None, metric_K: int = 1,
-                  fire_mode: str = "auto",
+                  seed, mesh: Optional[comm.Mesh] = None, axis: str = "feed",
+                  metric_K: int = 1, fire_mode: str = "auto",
                   device: DeviceLike = "cuda") -> StarResult:
     """Simulate one star component to its horizon on ``device`` (the card
     by default).  ``seed`` is an integer or a key [2].  Raises on a
     wall-buffer or post-buffer overflow instead of truncating.
 
-    ``fire_mode``: ``"loop"``, ``"doubling"`` or ``"auto"`` (doubling on
-    the card, the loop on the CPU); the fires are the same bit for bit."""
-    _no_mesh(mesh)
+    With ``mesh``, the feeds split over the mesh axis ``axis`` (which must
+    be named ``"feed"``; ``n_feeds`` must divide by its size): each rank
+    samples and ranks its own feeds, and every post is the ``pmin`` of the
+    ranks' candidates, so the result is bit-identical to the unsharded
+    run (the streams key off GLOBAL feed indices).  ``own_times`` and
+    ``n_posts`` are whole on every rank; ``wall_times``, ``wall_n`` and
+    the per-feed metrics are marked as sharded, and
+    ``metrics.mean_time_in_top_k()`` is the mean over every feed.  Every
+    rank of the axis calls it.
+
+    ``fire_mode``: ``"loop"``, ``"doubling"`` (unsharded only) or
+    ``"auto"`` (doubling on the card, the loop on the CPU or on a sharded
+    feed axis); the fires are the same bit for bit."""
     dev = resolve_device(device)
-    _check_fire_mode(fire_mode)
+    _check_fire_mode(fire_mode, feed_sharded=mesh is not None)
     _check_wall_kinds(cfg, wall)
-    wall_b = wall.to(dev).map(lambda x: x[None])
-    ctrl_b = ctrl.to(dev).map(lambda x: x[None])
+    wall, ctrl = wall.to(dev), ctrl.to(dev)
+    wall_l = wall
+    if mesh is not None:
+        _feed_axis_name(axis)
+        _check_divides(cfg.n_feeds, "n_feeds", mesh, axis)
+        wall_l = comm.block(wall, mesh, comm.P(axis))
+    wall_b = wall_l.map(lambda x: x[None])
+    ctrl_b = ctrl.map(lambda x: x[None])
     seed = np.asarray(seed.detach().cpu() if isinstance(seed, torch.Tensor)
                       else seed)
     keys = _as_keys(seed[None], dev)
 
     def run(compress):
-        return _get_fn(cfg, metric_K, compress, fire_mode, dev)(
-            wall_b, ctrl_b, keys)
+        fn = _get_fn(cfg, metric_K, compress, fire_mode, dev,
+                     feed_sharded=mesh is not None)
+        with (comm.bind(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            return fn(wall_b, ctrl_b, keys)
 
     own, n_posts, feed_times, wall_n, metrics, *_ = _run_with_fallback(
-        cfg, metric_K, ctrl_b, wall_b, run)
+        cfg, metric_K, ctrl_b, wall, run)
+    if mesh is None:
+        return StarResult(
+            own_times=own[0], n_posts=int(n_posts[0]),
+            wall_times=feed_times[0], wall_n=wall_n[0],
+            metrics=FeedMetrics(*(x[0] for x in metrics)), cfg=cfg)
     return StarResult(
-        own_times=own[0], n_posts=int(n_posts[0]), wall_times=feed_times[0],
-        wall_n=wall_n[0], metrics=FeedMetrics(*(x[0] for x in metrics)),
+        own_times=own[0], n_posts=int(n_posts[0]),
+        wall_times=comm.mark(feed_times[0], mesh, comm.P(axis, None)),
+        wall_n=comm.mark(wall_n[0], mesh, comm.P(axis)),
+        metrics=_sharded_metrics(metrics, mesh, None, axis, lane=0),
         cfg=cfg)
 
 
@@ -219,16 +279,23 @@ def broadcast_star(wall: WallParams, ctrl: CtrlParams, B: int):
 
 
 def simulate_star_batch(cfg: StarConfig, wall: WallParams, ctrl: CtrlParams,
-                        seeds, mesh=None, metric_K: int = 1,
-                        fire_mode: str = "auto",
+                        seeds, mesh: Optional[comm.Mesh] = None,
+                        axis: str = "data", feed_axis: Optional[str] = None,
+                        metric_K: int = 1, fire_mode: str = "auto",
                         device: DeviceLike = "cuda") -> StarBatchResult:
     """Run B star components in lockstep on ``device`` (the card by
     default): ``wall``/``ctrl`` leaves carry a leading [B] (see
     :func:`stack_star` / :func:`broadcast_star`), ``seeds`` is an integer
     array [B] or a key array [B, 2].  Every lane's result equals its
     :func:`simulate_star` at the same seed.  Raises on any lane's buffer
-    overflow, never truncates."""
-    _no_mesh(mesh)
+    overflow, never truncates.
+
+    With ``mesh``, the lanes split over ``axis``; with ``feed_axis`` (named
+    ``"feed"``) as well, each lane's feeds split over it, the 2-D layout
+    (lanes x followers) with the clock reduction riding ``pmin`` over the
+    feed axis.  Every layout is bit-identical to the unsharded run.  The
+    outputs are marked as sharded: ``own_times``/``n_posts`` over
+    ``axis``, ``wall_n`` and the per-feed metrics over both."""
     dev = resolve_device(device)
     keys = _as_keys(seeds, dev)
     B = keys.shape[0]
@@ -240,15 +307,37 @@ def simulate_star_batch(cfg: StarConfig, wall: WallParams, ctrl: CtrlParams,
             f"batch dims disagree: seeds={B}, ctrl="
             f"{ctrl.q.shape[0] if ctrl.q.dim() else 'unbatched'} — build the "
             f"batch with stack_star/broadcast_star")
-    _check_fire_mode(fire_mode)
+    feed_sharded = mesh is not None and feed_axis is not None
+    _check_fire_mode(fire_mode, feed_sharded=feed_sharded)
     _check_wall_kinds(cfg, wall)
+    if feed_axis is not None:
+        _feed_axis_name(feed_axis)
     wall, ctrl = wall.to(dev), ctrl.to(dev)
+    wall_l, ctrl_l, keys_l, lane_sum = wall, ctrl, keys, None
+    if mesh is not None:
+        _check_divides(B, "batch", mesh, axis)
+        if feed_sharded:
+            _check_divides(cfg.n_feeds, "n_feeds", mesh, feed_axis)
+        wall_l = comm.block(wall, mesh, comm.P(axis, feed_axis))
+        ctrl_l, keys_l = comm.block((ctrl, keys), mesh, comm.P(axis))
+
+        def lane_sum(counts):
+            return comm.mesh_reduce(counts, mesh, "SUM", axis)
 
     def run(compress):
-        return _get_fn(cfg, metric_K, compress, fire_mode, dev)(
-            wall, ctrl, keys)
+        fn = _get_fn(cfg, metric_K, compress, fire_mode, dev,
+                     feed_sharded=feed_sharded)
+        with (comm.bind(mesh) if feed_sharded
+              else contextlib.nullcontext()):
+            return fn(wall_l, ctrl_l, keys_l)
 
     own, n_posts, _ft, wall_n, metrics, *_ = _run_with_fallback(
-        cfg, metric_K, ctrl, wall, run)
-    return StarBatchResult(own_times=own, n_posts=n_posts, wall_n=wall_n,
-                           metrics=metrics, cfg=cfg)
+        cfg, metric_K, ctrl, wall, run, lane_sum)
+    if mesh is None:
+        return StarBatchResult(own_times=own, n_posts=n_posts,
+                               wall_n=wall_n, metrics=metrics, cfg=cfg)
+    return StarBatchResult(
+        own_times=comm.mark(own, mesh, comm.P(axis, None)),
+        n_posts=comm.mark(n_posts, mesh, comm.P(axis)),
+        wall_n=comm.mark(wall_n, mesh, comm.P(axis, feed_axis)),
+        metrics=_sharded_metrics(metrics, mesh, axis, feed_axis), cfg=cfg)

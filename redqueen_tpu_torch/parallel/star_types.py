@@ -15,7 +15,8 @@ from ..models.base import KIND_OPT, map_weights
 from ..utils.metrics import FeedMetrics
 
 __all__ = ["StarConfig", "WallParams", "CtrlParams", "StarResult",
-           "StarBatchResult", "RecordBudgetOverflow", "_EMPTY",
+           "StarBatchResult", "RecordBudgetOverflow", "ShardedFeedMetrics",
+           "_EMPTY",
            "WALL_FIELDS", "CTRL_FIELDS"]
 
 _EMPTY = -1  # wall-slot kind code for "no source in this slot"
@@ -130,3 +131,55 @@ class RecordBudgetOverflow(RuntimeError):
     (the short-clock regime; see ``star_fire._rec_cap``).
     ``simulate_star``/``_batch`` catch it and retry with compression off:
     the results are exact either way."""
+
+
+class ShardedFeedMetrics(FeedMetrics):
+    """``FeedMetrics`` of a sharded star run: the per-feed fields are
+    marked as sharded (``comm.mark``) over the lane and feed axes, and the
+    means reduce across ranks.  A mean over feeds is the GLOBAL mean over
+    every feed, summed and counted across the ranks that split the feed
+    dimension (never a mean of the ranks' means); a lane-sharded result
+    stays marked over the lane axis."""
+
+    __slots__ = ()
+
+    def _feed_mean(self, x):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        from . import comm
+
+        follows = comm.local(self.follows)
+        num = (comm.local(x) * follows).sum(-1)
+        n = follows.sum(-1)
+        if not comm.is_sharded(x):
+            return num / torch.clamp(n, min=1)
+        last = x.dim() - 1
+        placements = list(x.placements)
+        for mdim, p in enumerate(placements):
+            if isinstance(p, Shard) and p.dim == last:
+                group = x.device_mesh.get_group(mesh_dim=mdim)
+                num = comm._all_reduce(num, "SUM", group, "psum")
+                n = comm._all_reduce(n, "SUM", group, "psum")
+                placements[mdim] = Replicate()
+        out = num / torch.clamp(n, min=1)
+        if all(isinstance(p, Replicate) for p in placements):
+            return out
+        return DTensor.from_local(out, x.device_mesh, placements,
+                                  run_check=False)
+
+    def mean_time_in_top_k(self):
+        return self._feed_mean(self.time_in_top_k)
+
+    def mean_average_rank(self):
+        from . import comm
+
+        m = self._feed_mean(self.int_rank)
+        span = comm.local(self.end_time) - comm.local(self.start_time)
+        if not comm.is_sharded(m):
+            return m / span
+        return type(m).from_local(m.to_local() / span, m.device_mesh,
+                                  m.placements, run_check=False)
+
+    def mean_int_rank2(self):
+        """int r^2 dt, mean over the followed feeds."""
+        return self._feed_mean(self.int_rank2)

@@ -27,9 +27,6 @@ from .device import DeviceLike, resolve_device
 __all__ = ["PRESETS", "build_preset", "run_preset", "power_law_graph",
            "config5_data", "batch_lanes", "batch_metrics"]
 
-_MESH_ITEM = "ROADMAP.md Queue 1 item 6 (mesh -> torch.distributed)"
-
-
 def _scaled(n: int, scale: float, lo: int = 1) -> int:
     return max(int(round(n * scale)), lo)
 
@@ -262,6 +259,51 @@ def batch_metrics(log, adj, row, end_time: float, metric_K: int = 1):
     return m.mean_time_in_top_k(), num_posts(log.srcs, row), log.n_events
 
 
+def _run_star(bundle, seeds, mesh, metric_K: int, dev):
+    """A star bundle over ``seeds`` -> host ``(tops, posts, events)``."""
+    from .parallel import comm
+    from .parallel.bigf import (
+        broadcast_star,
+        simulate_star,
+        simulate_star_batch,
+    )
+
+    _, cfg, wall, ctrl = bundle
+    seeds_arr = np.asarray(seeds).ravel()
+    axes = mesh.shape if mesh is not None else {}
+    if len(seeds_arr) == 1 or (mesh is not None and "data" not in axes):
+        # One seed, or a feed-only mesh: one component at a time.
+        rows = []
+        for s in seeds_arr:
+            res = simulate_star(cfg, wall, ctrl, seed=int(s), mesh=mesh,
+                                metric_K=metric_K, device=dev)
+            rows.append(torch.stack([
+                comm.local(res.metrics.mean_time_in_top_k()).double(),
+                torch.tensor(res.n_posts, dtype=torch.float64, device=dev),
+                comm.total(res.wall_n).double()]))
+        tops, posts, wn = _host(*torch.stack(rows, 1))
+    else:
+        wb, cb = broadcast_star(wall.to(dev), ctrl.to(dev), len(seeds_arr))
+        res = simulate_star_batch(
+            cfg, wb, cb, seeds_arr, mesh=mesh,
+            feed_axis="feed" if "feed" in axes else None,
+            metric_K=metric_K, device=dev)
+        tops, posts = _lanes_host(mesh, res.metrics.mean_time_in_top_k(),
+                                  res.n_posts)
+        wn = _host(comm.total(res.wall_n)[None])[0]
+    return tops, posts, int(wn.sum()) + int(posts.sum())
+
+
+def _lanes_host(mesh, *xs):
+    """Per-lane vectors (marked as sharded over the lanes with ``mesh``)
+    whole on the host, float64, in one read or one gather."""
+    if mesh is None:
+        return _host(*xs)
+    from .parallel.multihost import gather_global
+
+    return [np.asarray(x, np.float64) for x in gather_global(xs)]
+
+
 def run_preset(bundle, seeds, mesh=None, max_chunks: int = 256,
                metric_K: int = 1, device: DeviceLike = "cuda"):
     """Run a preset bundle over ``seeds`` on ``device`` (the card by
@@ -271,23 +313,48 @@ def run_preset(bundle, seeds, mesh=None, max_chunks: int = 256,
     Batch and ragged bundles take one seed per lane or a scalar base
     seed; a single batch component is stacked once per seed.  Star
     bundles run one component per seed: one seed through
-    ``simulate_star``, several as one ``simulate_star_batch``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"sharded preset runs (mesh=) are not ported yet — {_MESH_ITEM}")
+    ``simulate_star``, several as one ``simulate_star_batch``.
+
+    With ``mesh`` (every rank calls it, and every rank gets the whole
+    dict): batch lanes split over its ``"data"`` axis through
+    ``simulate_sharded``; a star bundle with one seed, or on a mesh
+    without a ``"data"`` axis, splits its feeds over ``"feed"`` seed by
+    seed, otherwise its seeds split over ``"data"`` (and its feeds over
+    ``"feed"`` where the mesh has one).  Ragged bundles do not shard."""
     dev = resolve_device(device)
     kind = bundle[0]
     if kind == "batch":
         from .sim import simulate_batch
 
         cfg, params_b, adj_b, opt_row, seeds = batch_lanes(bundle, seeds, dev)
-        log = simulate_batch(cfg, params_b, adj_b, seeds,
-                             max_chunks=max_chunks, device=dev)
-        tops, posts, nev = _host(*batch_metrics(log, adj_b, opt_row,
-                                                cfg.end_time, metric_K))
+        if mesh is None:
+            log = simulate_batch(cfg, params_b, adj_b, seeds,
+                                 max_chunks=max_chunks, device=dev)
+            tops, posts, nev = _host(*batch_metrics(log, adj_b, opt_row,
+                                                    cfg.end_time, metric_K))
+        else:
+            from .parallel import comm
+            from .parallel.shard import simulate_sharded
+            from .sim import EventLog
+
+            log = simulate_sharded(cfg, params_b, adj_b, seeds, mesh,
+                                   max_chunks=max_chunks, device=dev)
+            local = EventLog(*comm.local((log.times, log.srcs,
+                                          log.n_events)), cfg)
+            per_lane = batch_metrics(local, comm.block(adj_b, mesh,
+                                                       comm.P("data")),
+                                     opt_row, cfg.end_time, metric_K)
+            tops, posts, nev = _lanes_host(mesh, *(
+                comm.mark(x, mesh, comm.P("data")) for x in per_lane))
         events = int(nev.sum())
         end_time = cfg.end_time
     elif kind == "ragged":
+        if mesh is not None:
+            raise ValueError(
+                "ragged presets dispatch through parallel.lanes."
+                "simulate_ragged, which does not shard over a mesh yet "
+                "(the ROADMAP item 3 remainder) — drop mesh or use a "
+                "batch/star preset")
         _, counts, opts = bundle
         from .parallel.lanes import simulate_ragged
 
@@ -304,29 +371,8 @@ def run_preset(bundle, seeds, mesh=None, max_chunks: int = 256,
         tops, posts, events = rr.top_k, rr.posts, rr.events
         end_time = opts["end_time"]
     elif kind == "star":
-        _, cfg, wall, ctrl = bundle
-        from .parallel.bigf import (
-            broadcast_star,
-            simulate_star,
-            simulate_star_batch,
-        )
-
-        seeds_arr = np.asarray(seeds).ravel()
-        if len(seeds_arr) == 1:
-            res = simulate_star(cfg, wall, ctrl, seed=int(seeds_arr[0]),
-                                metric_K=metric_K, device=dev)
-            tops, posts, wn = _host(res.metrics.mean_time_in_top_k()[None],
-                                    torch.tensor([res.n_posts], device=dev),
-                                    res.wall_n.sum()[None])
-        else:
-            wb, cb = broadcast_star(wall.to(dev), ctrl.to(dev),
-                                    len(seeds_arr))
-            res = simulate_star_batch(cfg, wb, cb, seeds_arr,
-                                      metric_K=metric_K, device=dev)
-            tops, posts, wn = _host(res.metrics.mean_time_in_top_k(),
-                                    res.n_posts, res.wall_n.sum(-1))
-        events = int(wn.sum()) + int(posts.sum())
-        end_time = cfg.end_time
+        tops, posts, events = _run_star(bundle, seeds, mesh, metric_K, dev)
+        end_time = bundle[1].end_time
     else:
         raise ValueError(f"unknown bundle kind {kind!r}")
     return {

@@ -294,14 +294,19 @@ def _drive(cfg: SimConfig, params: SourceParams, adj, state: SimState,
         torch.empty((B, 0), dtype=torch.float32, device=dev)
     srcs = torch.cat(srcs_parts, 1) if srcs_parts else \
         torch.empty((B, 0), dtype=torch.int32, device=dev)
+    log = EventLog(times, srcs, state.n_events - n_before, cfg,
+                   health=state.health, dispatches=dispatches,
+                   engine="scan")
     if state.health is not None:
         h = state.health.cpu().numpy()
         if h.size and np.all(h != 0):
-            raise NumericalHealthError(
+            err = NumericalHealthError(
                 h, context=f"simulation of {h.size} lane(s)")
-    return EventLog(times, srcs, state.n_events - n_before, cfg,
-                    health=state.health, dispatches=dispatches,
-                    engine="scan"), state
+            # The run's log and carry, for a caller whose other lanes
+            # live elsewhere (a sharded run: parallel.shard).
+            err.partial = (log, state)
+            raise err
+    return log, state
 
 
 def select_engine(cfg: SimConfig, params: Optional[SourceParams] = None, *,

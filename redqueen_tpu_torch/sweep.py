@@ -24,19 +24,21 @@ import torch
 from . import device as _device
 from .config import stack_components
 from .device import DeviceLike, resolve_device
+from .parallel import comm
 from .parallel.bigf import simulate_star_batch, stack_star
 from .runtime import faultinject as _faultinject
 from .runtime import integrity as _integrity
 from .runtime import numerics as _numerics
 from .runtime import preempt as _preempt
 from .runtime.supervisor import heartbeat as _heartbeat
+from .parallel.multihost import gather_global
+from .parallel.shard import simulate_sharded
+from .parallel.star_types import ShardedFeedMetrics
 from .sim import simulate_batch
 from .utils.metrics import feed_metrics_batch, num_posts
 
 __all__ = ["SweepResult", "run_sweep", "run_sweep_star",
            "run_sweep_checkpointed"]
-
-_MESH_ITEM = "ROADMAP.md Queue 1 item 6 (mesh -> torch.distributed)"
 
 
 class SweepResult(NamedTuple):
@@ -85,17 +87,29 @@ def _grid_host(rows: torch.Tensor, P: int, n_seeds: int) -> np.ndarray:
 
 
 def _reduce_to_grid(m, n_posts, P: int, n_seeds: int,
-                    kernel_health=None) -> SweepResult:
+                    kernel_health=None, mesh=None,
+                    axis="data") -> SweepResult:
     """``FeedMetrics`` [B, F] + per-lane posts (+ the engine's per-lane
     health words, None for the star engine) -> [P, n_seeds] grids, read
-    once.  The window comes from the metrics themselves."""
-    follows_n = torch.clamp(m.follows.sum(-1), min=1)
-    ir2 = (m.int_rank2 * m.follows).sum(-1) / follows_n
-    health = (torch.zeros_like(n_posts) if kernel_health is None
+    once.  The window comes from the metrics themselves.  With ``mesh``
+    the lanes are this rank's block of ``axis``: the means reduce over
+    any feed split (``ShardedFeedMetrics``) and the per-lane rows are
+    gathered, so every rank returns the whole grid."""
+    if isinstance(m, ShardedFeedMetrics):
+        ir2 = m.mean_int_rank2()
+    else:
+        follows_n = torch.clamp(m.follows.sum(-1), min=1)
+        ir2 = (m.int_rank2 * m.follows).sum(-1) / follows_n
+    health = (torch.zeros_like(comm.local(n_posts)) if kernel_health is None
               else kernel_health)
-    g = _grid_host(torch.stack([
-        m.mean_time_in_top_k().double(), m.mean_average_rank().double(),
-        n_posts.double(), ir2.double(), health.double()]), P, n_seeds)
+    rows = torch.stack([comm.local(x).double() for x in (
+        m.mean_time_in_top_k(), m.mean_average_rank(), n_posts, ir2,
+        health)])
+    if mesh is None:
+        g = _grid_host(rows, P, n_seeds)
+    else:
+        g = gather_global(comm.mark(rows, mesh, comm.P(None, axis)))
+        g = g.reshape(-1, P, n_seeds)
     values = dict(time_in_top_k=g[0].astype(np.float32),
                   average_rank=g[1].astype(np.float32),
                   n_posts=g[2].astype(np.int32),
@@ -120,26 +134,35 @@ def run_sweep(points: Sequence, n_seeds: int, src_index: int = 0,
     Seeds are ``seed0 + arange(n_points * n_seeds)``, point-major, so
     appending points keeps the earlier points' streams.  ``engine`` goes
     to ``simulate_batch`` (``"scan"``, ``"fused"``/``"pallas"`` or
-    ``"auto"``).  ``mesh`` and ``axis`` keep the JAX package's positions;
-    a mesh raises until the mesh layer is ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"sharded sweeps (mesh=) are not ported yet — {_MESH_ITEM}")
+    ``"auto"``).  With ``mesh``, the lanes split over ``axis`` (a name or
+    a tuple of names) through ``parallel.shard.simulate_sharded``, which
+    runs the scan engine only; each rank computes its lanes' metrics and
+    every rank returns the whole grid, equal to the unsharded one."""
     dev = resolve_device(device)
     points, cfg0 = _validate_points(points, n_seeds, "SourceParams")
+    if mesh is not None and engine != "scan":
+        raise ValueError(
+            "sharded sweeps (mesh=...) run on the scan engine only — the "
+            "pallas megakernel owns its lane layout; drop mesh or pass "
+            "engine='scan'")
     P = len(points)
     params, adj = stack_components(
         [p.to(dev) for _, p, _ in points for _ in range(n_seeds)],
         [torch.as_tensor(a).to(dev) for _, _, a in points
          for _ in range(n_seeds)])
     seeds = np.arange(P * n_seeds) + seed0
-    log = simulate_batch(cfg0, params, adj, seeds, max_chunks=max_chunks,
-                         engine=engine, device=dev)
-    m = feed_metrics_batch(log.times, log.srcs, adj, src_index,
-                           cfg0.end_time, K=metric_K,
-                           start_time=cfg0.start_time)
-    return _reduce_to_grid(m, num_posts(log.srcs, src_index), P, n_seeds,
-                           kernel_health=log.health)
+    if mesh is None:
+        log = simulate_batch(cfg0, params, adj, seeds, max_chunks=max_chunks,
+                             engine=engine, device=dev)
+    else:
+        log = simulate_sharded(cfg0, params, adj, seeds, mesh, axis=axis,
+                               max_chunks=max_chunks, device=dev)
+        adj = comm.block(adj, mesh, comm.P(axis))
+    times, srcs, health = comm.local((log.times, log.srcs, log.health))
+    m = feed_metrics_batch(times, srcs, adj, src_index, cfg0.end_time,
+                           K=metric_K, start_time=cfg0.start_time)
+    return _reduce_to_grid(m, num_posts(srcs, src_index), P, n_seeds,
+                           kernel_health=health, mesh=mesh, axis=axis)
 
 
 def run_sweep_star(points: Sequence, n_seeds: int, metric_K: int = 1,
@@ -148,10 +171,10 @@ def run_sweep_star(points: Sequence, n_seeds: int, metric_K: int = 1,
                    device: DeviceLike = "cuda") -> SweepResult:
     """The star-engine twin of :func:`run_sweep`: points are ``(cfg, wall,
     ctrl)`` triples from ``StarBuilder``, crossed with ``n_seeds`` into one
-    ``simulate_star_batch``, with the same grid layout and seed rule."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"sharded sweeps (mesh=) are not ported yet — {_MESH_ITEM}")
+    ``simulate_star_batch``, with the same grid layout and seed rule.
+    ``mesh``, ``axis`` and ``feed_axis`` go to ``simulate_star_batch``
+    (lanes over ``axis``, each lane's feeds over ``feed_axis``); every
+    rank returns the whole grid."""
     dev = resolve_device(device)
     points, cfg0 = _validate_points(points, n_seeds, "Wall/CtrlParams")
     P = len(points)
@@ -159,10 +182,12 @@ def run_sweep_star(points: Sequence, n_seeds: int, metric_K: int = 1,
         [w.to(dev) for _, w, _ in points for _ in range(n_seeds)],
         [c.to(dev) for _, _, c in points for _ in range(n_seeds)])
     seeds = np.arange(P * n_seeds) + seed0
-    res = simulate_star_batch(cfg0, wall_b, ctrl_b, seeds,
+    res = simulate_star_batch(cfg0, wall_b, ctrl_b, seeds, mesh=mesh,
+                              axis=axis, feed_axis=feed_axis,
                               metric_K=metric_K, fire_mode=fire_mode,
                               device=dev)
-    return _reduce_to_grid(res.metrics, res.n_posts, P, n_seeds)
+    return _reduce_to_grid(res.metrics, res.n_posts, P, n_seeds, mesh=mesh,
+                           axis=axis)
 
 
 
@@ -185,6 +210,10 @@ def _heal_sick_lanes(chunk: SweepResult, pts, n_seeds: int,
     sick = np.argwhere(np.asarray(chunk.health) != 0)
     if sick.size == 0:
         return chunk, 0
+    # One lane never divides a mesh axis, and needs no mesh: sharding
+    # changes placement only, so the lane re-runs unsharded to the same
+    # bits.
+    solo_kwargs = {k: v for k, v in kwargs.items() if k != "mesh"}
     fields = {f: np.array(getattr(chunk, f)) for f in SweepResult._fields}
     healed = 0
     for p, s in sick:
@@ -193,7 +222,7 @@ def _heal_sick_lanes(chunk: SweepResult, pts, n_seeds: int,
         try:
             with _faultinject.numeric_scope(chunk=ci, lane_base=lane):
                 solo = runner([pts[p]], 1, seed0=seed0_chunk + lane,
-                              **kwargs)
+                              **solo_kwargs)
         except _numerics.NumericalHealthError:
             continue  # the lane died again: its bits stay recorded
         if int(np.asarray(solo.health)[0, 0]) != 0:
@@ -292,6 +321,12 @@ def run_sweep_checkpointed(points: Sequence, n_seeds: int, ckpt_dir: str,
                         and all(f in z for f in SweepResult._fields)):
                     chunk = SweepResult(*(z[f] for f in SweepResult._fields))
         fresh = chunk is None
+        mesh = kwargs.get("mesh")
+        if mesh is not None:
+            # Every rank computes a chunk that any rank must: the run is a
+            # collective, so the ranks agree before they branch.
+            fresh = bool(comm.mesh_reduce(torch.tensor([int(fresh)]), mesh,
+                                          "MAX")[0])
         if fresh:
             # RQ_FAULT=numeric:mode@laneN,chunkM addresses lanes per chunk;
             # the scope is a no-op without a numeric fault.

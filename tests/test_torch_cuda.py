@@ -624,3 +624,77 @@ def test_native_loader_on_the_card_machine(card, tmp_path):
     out = R.native_load(str(tmp_path), dict(seed=5, n_users=2000,
                                             end_time=10.0))
     assert out["rows"] > 10_000 and out["native_rows_per_s"] > 0
+
+
+def test_world_of_one_on_nccl_shards_bit_identically(card, tmp_path):
+    """Phase 13 (a) small: a world of one rank on NCCL, the headline's
+    component at B = 64 through ``simulate_sharded`` equal to the
+    unsharded scan run on every lane, and the star engine on a feed axis
+    of one rank equal to its unsharded run."""
+    from redqueen_tpu_torch.parallel import comm, multihost
+    from redqueen_tpu_torch.smoke.fused import headline_component
+
+    cfg, params, adj, _, mc = headline_component(64, 20.0, card)
+    ref = rt.simulate_batch(cfg, params, adj, np.arange(64), max_chunks=mc,
+                            engine="scan", device=card)
+    sb = rt.StarBuilder(n_feeds=8, end_time=20.0)
+    for f in range(8):
+        sb.wall_poisson(f, 1.0)
+    sb.ctrl_opt(q=1.0)
+    scfg, wall, ctrl = sb.build(wall_cap=64, post_cap=256, device=card)
+    sref = rt.simulate_star(scfg, wall, ctrl, seed=0, device=card)
+    multihost.initialize(f"file://{tmp_path}/pg", 1, 0, device=card)
+    try:
+        assert multihost.process_summary()["backend"] == "nccl"
+        log = rt.parallel.simulate_sharded(
+            cfg, params, adj, np.arange(64), comm.make_mesh({"data": 1}),
+            max_chunks=mc, device=card)
+        got = multihost.gather_global([log.times, log.srcs, log.n_events])
+        star = rt.simulate_star(scfg, wall, ctrl, seed=0,
+                                mesh=comm.make_mesh({"feed": 1}),
+                                device=card)
+        sgot = multihost.gather_global([star.own_times, star.wall_n])
+    finally:
+        multihost.shutdown()
+    for g, w in zip(got, (ref.times, ref.srcs, ref.n_events)):
+        np.testing.assert_array_equal(g, w.cpu().numpy())
+    assert log.engine == "scan"
+    np.testing.assert_array_equal(sgot[0], sref.own_times.cpu().numpy())
+    np.testing.assert_array_equal(sgot[1], sref.wall_n.cpu().numpy())
+
+
+def test_two_ranks_share_the_card_over_gloo(card, tmp_path):
+    """Phase 13 (b)-(c) small: the multi-process demo as two ranks on one
+    card (gloo, the ``RQ_*`` environment) gives the summary of one rank
+    on the card, but for the topology."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    def demo(n, d):
+        d.mkdir()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "redqueen_tpu_torch.parallel."
+             "multihost_demo", "--out", str(d / "r0.json")],
+            env=dict(os.environ, RQ_COORDINATOR=f"file://{d}/pg",
+                     RQ_NUM_PROCESSES=str(n), RQ_PROCESS_ID=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(n)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for p, o in zip(procs, outs):
+            assert p.returncode == 0, o[-3000:]
+        return json.loads((d / "r0.json").read_text())
+
+    one, two = demo(1, tmp_path / "one"), demo(2, tmp_path / "two")
+    assert (one["backend"], two["backend"]) == ("nccl", "gloo")
+    assert two["platform"] == "cuda" and two["process_count"] == 2
+    topo = ("process_index", "process_count", "global_devices",
+            "mesh_shape", "backend")
+    assert {k: v for k, v in one.items() if k not in topo} == \
+        {k: v for k, v in two.items() if k not in topo}

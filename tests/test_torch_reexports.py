@@ -1,7 +1,7 @@
 """R1: the port's package surface against the JAX package's.  Every name
 a reference module exports (its ``__all__``, or its public names where it
-has none) exists in the port's counterpart; the only gaps allowed are the
-mesh layer's, each listed with the roadmap item that ports it.  Under
+has none) exists in the port's counterpart, the mesh layer's too: no
+gap is left.  Under
 ``RQ_SERVING_WORKER=1`` the runtime package still imports without torch,
 and the package itself loads no pandas."""
 
@@ -18,16 +18,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ("", ".runtime", ".runtime.supervisor", ".runtime.watchdog",
            ".runtime.numerics", ".utils", ".utils.backend",
            ".utils.roofline", ".data", ".data.traces", ".sweep", ".sim",
-           ".native", ".parallel")
+           ".native", ".parallel", ".parallel.comm", ".parallel.multihost",
+           ".parallel.shard")
 
-# Names still to port, each with its roadmap item.
-GAPS = {
-    ".parallel": {
-        "make_mesh": "item 6",
-        "psum": "item 6", "pmin": "item 6", "pmax": "item 6",
-        "pany": "item 6", "axis_total": "item 6", "replicate": "item 6",
-        "shard_leading": "item 6", "simulate_sharded": "item 6"},
-}
+# Names still to port, each with its roadmap item: none are left.
+GAPS = {}
 
 
 def _exported(mod):
@@ -58,7 +53,13 @@ def test_every_reference_name_exists_in_the_port(name):
 
 
 def test_every_listed_gap_is_item_6():
-    assert {v for g in GAPS.values() for v in g.values()} == {"item 6"}
+    """A listed gap names the roadmap item that ports it (item 6, the
+    mesh layer, was the last; none is listed now)."""
+    assert all(v == "item 6" for g in GAPS.values() for v in g.values())
+
+
+def test_no_gap_is_left():
+    assert GAPS == {}
 
 
 def test_version_and_runtime_names():

@@ -395,3 +395,75 @@ def test_sweep_axis_binds_in_the_reference_position():
     got = tsweep.run_sweep_star(star, 2, 1, 0, None, "data", None,
                                 "doubling", device="cpu")
     assert got.n_posts.shape == (1, 2)
+
+
+# The mesh layer: collectives, placement, sharded runs and the run across
+# processes (the port adds its keywords, such as ``device``, last).
+from redqueen_tpu import presets as jpresets  # noqa: E402
+from redqueen_tpu.parallel import bigf as jbigf  # noqa: E402
+from redqueen_tpu.parallel import comm as jcomm  # noqa: E402
+from redqueen_tpu.parallel import multihost as jmultihost  # noqa: E402
+from redqueen_tpu.parallel import shard as jshard  # noqa: E402
+from redqueen_tpu_torch import presets as tpresets  # noqa: E402
+from redqueen_tpu_torch.parallel import bigf as tbigf  # noqa: E402
+from redqueen_tpu_torch.parallel import comm as tcomm  # noqa: E402
+from redqueen_tpu_torch.parallel import multihost as tmultihost  # noqa: E402,E501
+from redqueen_tpu_torch.parallel import shard as tshard  # noqa: E402
+
+PAIRS.update({f"comm.{n}": (getattr(jcomm, n), getattr(tcomm, n))
+              for n in jcomm.__all__})
+PAIRS.update({f"multihost.{n}": (getattr(jmultihost, n),
+                                 getattr(tmultihost, n))
+              for n in jmultihost.__all__})
+PAIRS.update({
+    "shard.simulate_sharded": (jshard.simulate_sharded,
+                               tshard.simulate_sharded),
+    "bigf.simulate_star": (jbigf.simulate_star, tbigf.simulate_star),
+    "bigf.simulate_star_batch": (jbigf.simulate_star_batch,
+                                 tbigf.simulate_star_batch),
+    "presets.run_preset": (jpresets.run_preset, tpresets.run_preset),
+})
+
+
+def _star(F=4):
+    sb = rt.StarBuilder(n_feeds=F, end_time=20.0)
+    for f in range(F):
+        sb.wall_poisson(f, 1.0)
+    sb.ctrl_opt(q=1.0)
+    return sb.build(wall_cap=64, post_cap=256, device="cpu")
+
+
+def test_star_axis_binds_in_the_reference_position():
+    """``simulate_star(cfg, wall, ctrl, seed, mesh, axis, metric_K,
+    fire_mode)``: a positional ``metric_K`` after ``axis`` lands in
+    ``metric_K``, a positional ``fire_mode`` in ``fire_mode``."""
+    cfg, wall, ctrl = _star()
+    pos = tbigf.simulate_star(cfg, wall, ctrl, 3, None, "feed", 2, "loop",
+                              device="cpu")
+    kw = tbigf.simulate_star(cfg, wall, ctrl, 3, metric_K=2,
+                             fire_mode="loop", device="cpu")
+    k1 = tbigf.simulate_star(cfg, wall, ctrl, 3, device="cpu")
+    np.testing.assert_array_equal(pos.metrics.time_in_top_k.numpy(),
+                                  kw.metrics.time_in_top_k.numpy())
+    assert not torch.equal(pos.metrics.time_in_top_k,
+                           k1.metrics.time_in_top_k)
+    with pytest.raises(ValueError, match="unknown fire_mode"):
+        tbigf.simulate_star(cfg, wall, ctrl, 3, None, "feed", 1, "nope",
+                            device="cpu")
+
+
+def test_star_batch_axes_bind_in_the_reference_position():
+    """``simulate_star_batch(cfg, wall, ctrl, seeds, mesh, axis,
+    feed_axis, metric_K, fire_mode)``, and a follower axis not named
+    ``"feed"`` refused as the reference refuses it."""
+    cfg, wall, ctrl = _star()
+    wb, cb = tbigf.broadcast_star(wall, ctrl, 2)
+    pos = tbigf.simulate_star_batch(cfg, wb, cb, np.arange(2), None, "data",
+                                    None, 2, "doubling", device="cpu")
+    kw = tbigf.simulate_star_batch(cfg, wb, cb, np.arange(2), metric_K=2,
+                                   fire_mode="doubling", device="cpu")
+    np.testing.assert_array_equal(pos.metrics.time_in_top_k.numpy(),
+                                  kw.metrics.time_in_top_k.numpy())
+    with pytest.raises(ValueError, match="must be named 'feed'"):
+        tbigf.simulate_star_batch(cfg, wb, cb, np.arange(2),
+                                  feed_axis="sp", device="cpu")

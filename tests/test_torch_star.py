@@ -427,7 +427,7 @@ def test_short_clock_fallback_end_to_end():
         TB._check_overflow(cfg, out[5], out[6], out[7])
 
 
-def test_overflow_raises():
+def test_overflow_raises(tmp_path):
     with pytest.raises(RuntimeError, match="wall stream overflow"):
         TB.simulate_star(*build(TB, wall_cap=8, device="cpu"), seed=0,
                          device="cpu")
@@ -438,8 +438,22 @@ def test_overflow_raises():
     with pytest.raises(ValueError, match="batch dims disagree"):
         TB.simulate_star_batch(tc, *TB.broadcast_star(tw, tk, 2),
                                np.arange(3), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TB.simulate_star(tc, tw, tk, seed=0, mesh=object(), device="cpu")
+    # A mesh of one rank (the feed axis whole) equals the unsharded run.
+    from redqueen_tpu_torch.parallel import comm, multihost
+    from torch_mesh_world import one_rank
+
+    with one_rank(tmp_path):
+        sh = TB.simulate_star(tc, tw, tk, seed=0,
+                              mesh=comm.make_mesh({"feed": 1}), device="cpu")
+        got = multihost.gather_global({
+            "own_times": sh.own_times, "wall_times": sh.wall_times,
+            "wall_n": sh.wall_n, "top": sh.metrics.time_in_top_k})
+    ref = TB.simulate_star(tc, tw, tk, seed=0, device="cpu")
+    assert sh.n_posts == ref.n_posts
+    for k in ("own_times", "wall_times", "wall_n"):
+        np.testing.assert_array_equal(got[k], getattr(ref, k).numpy())
+    np.testing.assert_array_equal(got["top"],
+                                  ref.metrics.time_in_top_k.numpy())
 
 
 def test_ctrl_replay_longer_than_post_cap_truncates_loudly():

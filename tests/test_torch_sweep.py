@@ -95,7 +95,7 @@ def test_sick_lane_is_labelled_in_the_grid(monkeypatch):
         res.health[1, 1] & numerics.BIT_NONFINITE_STATE
 
 
-def test_bad_sweeps_rejected():
+def test_bad_sweeps_rejected(tmp_path):
     with pytest.raises(ValueError, match="empty sweep"):
         sweep.run_sweep([], n_seeds=2, device="cpu")
     with pytest.raises(ValueError, match="n_seeds"):
@@ -105,9 +105,20 @@ def test_bad_sweeps_rejected():
     b = q_points(rt, [1.0], F=5, device="cpu")
     with pytest.raises(ValueError, match="different static config"):
         sweep.run_sweep(a + b, n_seeds=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        sweep.run_sweep_star(star_points(TB, [1.0], device="cpu"), 2,
-                             mesh=object(), device="cpu")
+    # A mesh of one rank runs the sweep to the unsharded grid, and
+    # refuses the event kernel as the JAX package does.
+    from redqueen_tpu_torch.parallel import comm
+    from torch_mesh_world import one_rank
+
+    spts = star_points(TB, [1.0], device="cpu")
+    with one_rank(tmp_path):
+        mesh = comm.make_mesh({"data": 1})
+        got = sweep.run_sweep_star(spts, 2, mesh=mesh, device="cpu")
+        with pytest.raises(ValueError, match="scan engine only"):
+            sweep.run_sweep(a, n_seeds=2, mesh=mesh, engine="fused",
+                            device="cpu")
+    for x, y in zip(got, sweep.run_sweep_star(spts, 2, device="cpu")):
+        np.testing.assert_array_equal(x, y)
 
 
 def test_new_entry_points_default_to_the_card():

@@ -324,3 +324,24 @@ def test_sigterm_mid_sweep_resumes_bit_identically(tmp_path):
     for f, t in mtimes.items():
         assert os.path.getmtime(os.path.join(ckpt, f)) == t, f
     same(resumed, run_sweep(sigterm_points(), n_seeds=2, **CPU))
+
+
+def test_heal_rerun_drops_the_mesh():
+    """The one-lane re-run of a sick lane gets every keyword but the
+    mesh (one lane divides no mesh axis; sharding changes placement
+    only, so the lane's bits are the same)."""
+    seen = []
+
+    def runner(pts, n, seed0=0, **kw):
+        seen.append(kw)
+        return sweep_mod.SweepResult(*(np.zeros((1, 1), np.float32)
+                                       for _ in sweep_mod.SweepResult._fields))
+
+    chunk = sweep_mod.SweepResult(*(np.zeros((1, 2), np.uint32)
+                                    for _ in sweep_mod.SweepResult._fields))
+    chunk = chunk._replace(health=np.array([[0, 4]], np.uint32))
+    healed, n = sweep_mod._heal_sick_lanes(
+        chunk, [("pt",)], 2, 0, runner, 0,
+        {"mesh": "a mesh", "axis": "data", "device": "cpu"})
+    assert n == 1
+    assert seen == [{"axis": "data", "device": "cpu"}]
