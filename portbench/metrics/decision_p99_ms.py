@@ -1,0 +1,15 @@
+"""99th-percentile decision latency in milliseconds over every batch due
+in the window (all of them: nothing trimmed), from when it was due to
+when ``poll`` returned its decision; a batch that failed counts as
+infinitely late."""
+
+import math
+
+from portbench.common import nearest_rank
+
+
+def read(rec):
+    if rec.driver != "serve":
+        return None
+    v = nearest_rank(rec.values["latencies_s"], 99) * 1e3
+    return v if math.isfinite(v) else None
