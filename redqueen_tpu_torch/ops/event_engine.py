@@ -325,17 +325,19 @@ def simulate_fused(cfg: SimConfig, params: SourceParams, adj, seeds,
     from ..sim import EventLog  # local: sim imports this module
 
     dev = resolve_device(device)
-    params = params.to(dev)
-    adj = torch.as_tensor(adj).to(dev)
-    prep = prepare(cfg, params, adj, seeds, sync_every)
+    with _telemetry.span("fused.prepare"):
+        params = params.to(dev)
+        adj = torch.as_tensor(adj).to(dev)
+        prep = prepare(cfg, params, adj, seeds, sync_every)
     carry, times, srcs, dispatches = drive(prep, launch, max_chunks)
-    # The run's one results boundary: health crosses to the host once.
-    health = from_bits32(carry["health"])
-    health_host = health.cpu().numpy()
-    if health_host.size and np.all(health_host != 0):
-        raise _numerics.NumericalHealthError(
-            health_host, context=f"fused simulation of {health_host.size} "
-                                 f"lane(s)")
-    return EventLog(times, srcs, carry["nev"], cfg, health=health,
-                    dispatches=dispatches,
-                    engine="cuda" if times.is_cuda else "plain")
+    with _telemetry.span("fused.log"):
+        # The run's one results boundary: health crosses to the host once.
+        health = from_bits32(carry["health"])
+        health_host = health.cpu().numpy()
+        if health_host.size and np.all(health_host != 0):
+            raise _numerics.NumericalHealthError(
+                health_host, context=f"fused simulation of {health_host.size} "
+                                     f"lane(s)")
+        return EventLog(times, srcs, carry["nev"], cfg, health=health,
+                        dispatches=dispatches,
+                        engine="cuda" if times.is_cuda else "plain")

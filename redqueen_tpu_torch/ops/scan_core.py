@@ -52,6 +52,7 @@ from ..models.base import (
     get_registry,
 )
 from ..runtime import numerics
+from ..runtime import telemetry as _telemetry
 from ..runtime.numerics import nan_to_posinf, require_float32
 from . import prng
 from .threefry import MASK32, threefry2x32, uniform_from_bits
@@ -214,7 +215,11 @@ class RunChunk:
         if state.budget is not None:
             valid &= state.n_events < state.budget
 
-        us = self.panel(state, consts)
+        # Spans of the step's stages, without keyword arguments (those
+        # cost the disabled path a dict a call); the selection, health
+        # bits and state update are the ``scan.step`` span's own time.
+        with _telemetry.span("scan.panel"):
+            us = self.panel(state, consts)
         key_fire = None
         if self.needs_fire_key:
             key_fire = prng.fold_in(at_source(state.keys, s),
@@ -232,24 +237,26 @@ class RunChunk:
             rd_new = at_source(state.rd_ptr, s)
         if self.has_rmtpp:
             h_new = at_source(state.h, s)
-        for k, on_fire in self.fire:
-            mine = kind == k
-            upd = on_fire(params, state, s, t_ev, key_fire, us[:, 0],
-                          valid & mine)
-            t_new = upd.t_next if t_new is None else \
-                torch.where(mine, upd.t_next, t_new)
-            if self.has_hawkes:
-                exc_new = _select(mine, upd.exc, exc_new)
-            if self.has_exc_t:
-                exc_t_new = _select(mine, upd.exc_t, exc_t_new)
-            if self.has_realdata:
-                rd_new = _select(mine, upd.rd_ptr, rd_new)
-            if self.has_rmtpp:
-                h_new = _select(mine[:, None], upd.h, h_new)
-            if upd.ok is not None:
-                # Kinds that cannot fail are ok; one kind is the lane's.
-                ok_k = upd.ok | ~mine
-                ok = ok_k if ok is None else ok & ok_k
+        with _telemetry.span("scan.fire"):
+            for k, on_fire in self.fire:
+                mine = kind == k
+                upd = on_fire(params, state, s, t_ev, key_fire, us[:, 0],
+                              valid & mine)
+                t_new = upd.t_next if t_new is None else \
+                    torch.where(mine, upd.t_next, t_new)
+                if self.has_hawkes:
+                    exc_new = _select(mine, upd.exc, exc_new)
+                if self.has_exc_t:
+                    exc_t_new = _select(mine, upd.exc_t, exc_t_new)
+                if self.has_realdata:
+                    rd_new = _select(mine, upd.rd_ptr, rd_new)
+                if self.has_rmtpp:
+                    h_new = _select(mine[:, None], upd.h, h_new)
+                if upd.ok is not None:
+                    # Kinds that cannot fail are ok; one kind is the
+                    # lane's.
+                    ok_k = upd.ok | ~mine
+                    ok = ok_k if ok is None else ok & ok_k
 
         # Write-back checks: every one is an identity on healthy values.
         bits = torch.where(healthy & (t_ev_bad | regressed),
@@ -274,12 +281,13 @@ class RunChunk:
                 1, col, ((at_source(state.ctr, s) + 1) & MASK32)[:, None])
 
         # React hooks: the sources that did not fire re-decide.
-        for pd in self.reacts:
-            t_next_w, bumped = pd.on_react(
-                self.cfg, params, state.replace(t_next=t_next_w),
-                consts["react"][pd.kind], s, t_ev, valid, us[:, 1:])
-            if ctr is not None:
-                ctr = (ctr + bumped.to(torch.int64)) & MASK32
+        with _telemetry.span("scan.react"):
+            for pd in self.reacts:
+                t_next_w, bumped = pd.on_react(
+                    self.cfg, params, state.replace(t_next=t_next_w),
+                    consts["react"][pd.kind], s, t_ev, valid, us[:, 1:])
+                if ctr is not None:
+                    ctr = (ctr + bumped.to(torch.int64)) & MASK32
 
         # Absorbed steps leave the carry as it was.
         v1 = valid[:, None]
@@ -320,7 +328,8 @@ class RunChunk:
             consts = self.consts(params, adj)
         times, srcs = [], []
         for _ in range(self.cfg.capacity):
-            state, t, s = self.step(params, state, consts)
+            with _telemetry.span("scan.step"):
+                state, t, s = self.step(params, state, consts)
             times.append(t)
             srcs.append(s)
         return state, torch.stack(times, 1), torch.stack(srcs, 1)

@@ -1,6 +1,7 @@
 """Unified telemetry: structured spans, counters/histograms, and the
 per-process flight-recorder ring — the port's copy of the JAX package's
-``runtime.telemetry``, whole (same spans, schemas and summaries).
+``runtime.telemetry``, whole (same spans, schemas and summaries; a span
+here also carries its start in integer nanoseconds, ``t_ns``).
 
 Every diagnosis this repo has shipped — the 4000x sim-vs-serve gap, the
 42ms/round worker-poll bottleneck, the 21x launch amortization — was
@@ -19,22 +20,27 @@ Design contract, in decreasing order of importance:
   read, one branch, and a shared no-op singleton — no allocation
   survives the call (pinned by the zero-allocation test).  Hot paths
   therefore instrument unconditionally.
-- **Monotonic spans, wall anchors.**  Durations come from
-  ``time.perf_counter`` (monotonic, ns resolution); each span also
-  stamps ``time.time()`` at entry so spans from DIFFERENT processes can
-  be ordered on one host.  Under async JAX dispatch a span around a
-  jitted call measures *enqueue* time — the wait surfaces in the
-  explicit ``*.sync`` span at the device→host boundary (the same
-  honesty rule RQ601 enforces on benchmarks).
+- **Monotonic spans, wall anchors.**  A span reads
+  ``time.perf_counter_ns`` once at entry and once at exit; its start on
+  the wall clock (``t_ns``, integer nanoseconds, with ``t`` in seconds
+  derived from it) is the entry read plus an anchor, ``time.time_ns()
+  - time.perf_counter_ns()``, taken when telemetry is enabled.  So spans
+  from DIFFERENT processes order on one host, and they share
+  ``torch.profiler``'s clock, whose records carry ``time.time_ns()``
+  nanoseconds.  Under async dispatch a span around a device call
+  measures *enqueue* time — the wait surfaces in the explicit ``*.sync``
+  span at the device→host boundary (the same honesty rule RQ601 enforces
+  on benchmarks).
 - **Trace ids cross processes.**  ``context()`` exports the current
   ``{"tid", "sid"}``; ``attach(ctx)`` adopts it as the parent, so a
   request's spans stitch across the worker frame protocol and the
   socket transport (``serving.transport.attach_trace`` /
   ``extract_trace`` carry it in a reserved frame field).
-- **The flight recorder survives SIGKILL.**  Finished spans mirror into
-  a fixed-size ring FILE of fixed-width slots (``os.pwrite``, no fsync
-  — page-cache durability is exactly what a process kill preserves), so
-  a SIGKILL'd worker leaves its last ~N spans as evidence.
+- **The flight recorder survives SIGKILL.**  Finished spans (all but
+  the scan engine's per-step ones) mirror into a fixed-size ring FILE
+  of fixed-width slots (``os.pwrite``, no fsync — page-cache durability
+  is exactly what a process kill preserves), so a SIGKILL'd worker
+  leaves its last ~N spans as evidence.
   ``read_flight`` never raises: torn or stale slots are skipped.
 - **Sampling is a trace-level decision.**  ``sample < 1`` keeps or
   drops WHOLE traces (deterministic hash of the trace id, so every
@@ -124,6 +130,12 @@ FLIGHT_DEFAULT_CAPACITY = 256
 #: metrics block and the supervisor's RunReport attempts), so the two
 #: never drift on how much evidence a dead child leaves behind.
 FLIGHT_SALVAGE_SPANS = 32
+#: Spans kept out of the flight ring: the scan engine's, one set a step
+#: (four spans), which would push a dead child's superchunk and sync
+#: spans, the ones that say where it stopped, out of its ring and its
+#: salvage within a few steps.  The export buffer still records them.
+_FLIGHT_UNMIRRORED = frozenset(
+    {"scan.step", "scan.panel", "scan.fire", "scan.react"})
 
 #: Export-buffer bound: completed spans kept in memory for export.
 #: Bounded like every other long-lived ledger in the repo — a serving
@@ -365,7 +377,7 @@ class _Span:
     record to the owning telemetry instance."""
 
     __slots__ = ("_tel", "name", "tid", "parent", "sid", "attrs",
-                 "events", "t_wall", "_t0", "dur")
+                 "events", "_t0", "t_ns", "dur_ns")
 
     def __init__(self, tel: "Telemetry", name: str, tid: str,
                  parent: Optional[int], attrs: Optional[Dict[str, Any]]):
@@ -376,21 +388,21 @@ class _Span:
         self.sid = 0
         self.attrs = attrs or None
         self.events: Optional[List[Any]] = None
-        self.t_wall = 0.0
-        self._t0 = 0.0
-        self.dur = 0.0
+        self._t0 = 0       # monotonic entry read
+        self.t_ns = 0      # entry on the wall clock, set at exit
+        self.dur_ns = 0
 
     def __enter__(self):
         tel = self._tel
         self.sid = next(tel._sid)
         tel._stack().append((self.tid, self.sid))
-        self.t_wall = time.time()
         self._t0 = tel._clock()
         return self
 
     def __exit__(self, et, ev, tb):
         tel = self._tel
-        self.dur = tel._clock() - self._t0
+        self.dur_ns = tel._clock() - self._t0
+        self.t_ns = self._t0 + tel._anchor_ns
         stack = tel._stack()
         if stack and stack[-1] == (self.tid, self.sid):
             stack.pop()
@@ -410,15 +422,16 @@ class _Span:
         """Point annotation at the current offset into this span."""
         if self.events is None:
             self.events = []
-        off = self._tel._clock() - self._t0
+        off = (self._tel._clock() - self._t0) / 1e9
         self.events.append([str(name), round(off, 9), attrs or None])
         return self
 
     def to_dict(self) -> Dict[str, Any]:
         d: Dict[str, Any] = {"tid": self.tid, "sid": self.sid,
                              "name": self.name,
-                             "t": round(self.t_wall, 6),
-                             "dur": round(self.dur, 9),
+                             "t": round(self.t_ns / 1e9, 6),
+                             "t_ns": self.t_ns,
+                             "dur": round(self.dur_ns / 1e9, 9),
                              "pid": self._tel._pid}
         if self.parent is not None:
             d["parent"] = self.parent
@@ -475,9 +488,10 @@ class Telemetry:
                  flight: Optional[str] = None,
                  flight_capacity: int = FLIGHT_DEFAULT_CAPACITY,
                  max_spans: int = MAX_BUFFERED_SPANS,
-                 clock=time.perf_counter):
+                 clock=time.perf_counter_ns):
         self._lock = threading.Lock()
-        self._clock = clock
+        self._clock = clock   # monotonic integer nanoseconds
+        self._anchor_ns = 0
         self._pid = os.getpid()
         # Span ids must be unique across PROCESSES within one trace (a
         # worker span's parent is a router sid): a plain 1-based counter
@@ -540,6 +554,9 @@ class Telemetry:
                        else int(flight_capacity))
                 self._flight = FlightRecorder(flight, capacity=cap)
                 self.enabled = True  # a ring without spans records nothing
+            if self.enabled:
+                # Spans' starts on the wall clock: t_ns = entry + anchor.
+                self._anchor_ns = time.time_ns() - self._clock()
         return self
 
     def configure_from_env(self) -> "Telemetry":
@@ -672,8 +689,8 @@ class Telemetry:
             parent = None
         s = _Span(self, name, tid, parent, attrs or None)
         s.sid = next(self._sid)
-        s.t_wall = time.time()
-        s.dur = 0.0
+        s._t0 = self._clock()
+        s.t_ns = s._t0 + self._anchor_ns
         self._finish(s)
 
     def counter(self, name: str, n: float = 1) -> None:
@@ -714,7 +731,7 @@ class Telemetry:
             # above stays lock-free.
             with self._lock:
                 self.spans_dropped += 1
-        if self._flight is not None:
+        if self._flight is not None and s.name not in _FLIGHT_UNMIRRORED:
             with self._lock:
                 if self._flight is not None:
                     self._flight.record(s.to_dict())

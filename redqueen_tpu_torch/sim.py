@@ -288,24 +288,25 @@ def _drive(cfg: SimConfig, params: SourceParams, adj, state: SimState,
         finally:
             dsp.set(dispatches=dispatches, chunks=n_chunks)
     _telemetry.counter("engine.scan.dispatches", dispatches)
-    B = state.t.shape[0]
-    dev = state.t.device
-    times = torch.cat(times_parts, 1) if times_parts else \
-        torch.empty((B, 0), dtype=torch.float32, device=dev)
-    srcs = torch.cat(srcs_parts, 1) if srcs_parts else \
-        torch.empty((B, 0), dtype=torch.int32, device=dev)
-    log = EventLog(times, srcs, state.n_events - n_before, cfg,
-                   health=state.health, dispatches=dispatches,
-                   engine="scan")
-    if state.health is not None:
-        h = state.health.cpu().numpy()
-        if h.size and np.all(h != 0):
-            err = NumericalHealthError(
-                h, context=f"simulation of {h.size} lane(s)")
-            # The run's log and carry, for a caller whose other lanes
-            # live elsewhere (a sharded run: parallel.shard).
-            err.partial = (log, state)
-            raise err
+    with _telemetry.span("scan.log"):
+        B = state.t.shape[0]
+        dev = state.t.device
+        times = torch.cat(times_parts, 1) if times_parts else \
+            torch.empty((B, 0), dtype=torch.float32, device=dev)
+        srcs = torch.cat(srcs_parts, 1) if srcs_parts else \
+            torch.empty((B, 0), dtype=torch.int32, device=dev)
+        log = EventLog(times, srcs, state.n_events - n_before, cfg,
+                       health=state.health, dispatches=dispatches,
+                       engine="scan")
+        if state.health is not None:
+            h = state.health.cpu().numpy()
+            if h.size and np.all(h != 0):
+                err = NumericalHealthError(
+                    h, context=f"simulation of {h.size} lane(s)")
+                # The run's log and carry, for a caller whose other
+                # lanes live elsewhere (a sharded run: parallel.shard).
+                err.partial = (log, state)
+                raise err
     return log, state
 
 
@@ -409,33 +410,41 @@ def simulate_batch(cfg: SimConfig, params: SourceParams, adj, seeds,
             cfg, params, adj, seeds, slab, max_chunks=max_chunks,
             sync_every=sync_every, max_events=max_events, engine=engine,
             device=dev)
-    name, reason = select_engine(
-        cfg, params, engine=engine, max_events=max_events,
-        return_state=return_state, key_seeds=_is_key_array(seeds),
-        sync_every=sync_every, device=dev)
-    params = params.to(dev)
-    adj = torch.as_tensor(adj).to(dev)
-    _check_kinds(cfg, params)
-    _check_finite_params(cfg, params)
-    _check_weights(cfg, params)
-    if name == "fused":
-        _telemetry.event("engine.dispatch", engine="pallas",
-                         requested=engine)
-        _telemetry.counter("engine.dispatch.pallas")
-        return simulate_fused(cfg, params, adj, seeds, max_chunks=max_chunks,
-                              sync_every=sync_every, device=dev)
-    # The choice and, for an auto request that fell back, why: the fact
-    # EventLog.engine_reason carries, in the trace under the JAX
-    # package's names.
-    _telemetry.event("engine.dispatch", engine="scan", requested=engine,
-                     reason=reason)
-    _telemetry.counter("engine.dispatch.scan")
-    keys = _as_keys(seeds, dev)
-    B = keys.shape[0]
-    state = _maybe_poison(init_state(cfg, params, adj, keys), B)
-    if max_events is not None:
-        state = state.replace(budget=_budget(max_events, B, dev))
-    log, state = _drive(cfg, params, adj, state, max_chunks, sync_every)
+    # The call's stages under names of the port's own (the engine.*
+    # spans inside keep the JAX package's): the checks, the engine's
+    # set-up, its run, and the log.
+    with _telemetry.span("sim.simulate_batch") as root:
+        with _telemetry.span("sim.checks"):
+            name, reason = select_engine(
+                cfg, params, engine=engine, max_events=max_events,
+                return_state=return_state, key_seeds=_is_key_array(seeds),
+                sync_every=sync_every, device=dev)
+            params = params.to(dev)
+            adj = torch.as_tensor(adj).to(dev)
+            _check_kinds(cfg, params)
+            _check_finite_params(cfg, params)
+            _check_weights(cfg, params)
+        root.set(engine=name, lanes=int(params.kind.shape[0]))
+        if name == "fused":
+            _telemetry.event("engine.dispatch", engine="pallas",
+                             requested=engine)
+            _telemetry.counter("engine.dispatch.pallas")
+            return simulate_fused(cfg, params, adj, seeds,
+                                  max_chunks=max_chunks,
+                                  sync_every=sync_every, device=dev)
+        # The choice and, for an auto request that fell back, why: the
+        # fact EventLog.engine_reason carries, in the trace under the JAX
+        # package's names.
+        _telemetry.event("engine.dispatch", engine="scan", requested=engine,
+                         reason=reason)
+        _telemetry.counter("engine.dispatch.scan")
+        with _telemetry.span("scan.init"):
+            keys = _as_keys(seeds, dev)
+            B = keys.shape[0]
+            state = _maybe_poison(init_state(cfg, params, adj, keys), B)
+            if max_events is not None:
+                state = state.replace(budget=_budget(max_events, B, dev))
+        log, state = _drive(cfg, params, adj, state, max_chunks, sync_every)
     log.engine_reason = reason
     return (log, state) if return_state else log
 

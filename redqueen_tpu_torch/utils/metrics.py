@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..runtime import telemetry as _telemetry
+
 __all__ = ["FeedMetrics", "feed_metrics", "feed_metrics_batch", "num_posts"]
 
 
@@ -53,48 +55,53 @@ def feed_metrics_batch(times, srcs, adj, src_index, end_time, K: int = 1,
     """Metrics of a batched log ``times``/``srcs`` [B, E] against the
     components' adjacency [B, S, F] for tracked row ``src_index``.
     Events before ``start_time`` still build rank history."""
-    dtype = times.dtype
-    dev = times.device
-    B, S, F = adj.shape
-    follows = adj[:, src_index, :]                         # [B, F] bool
-    end = torch.tensor(end_time, dtype=dtype, device=dev)
-    start = torch.tensor(start_time, dtype=dtype, device=dev)
-    r = torch.zeros((B, F), dtype=torch.int32, device=dev)
-    t_prev = torch.full((B,), start_time, dtype=dtype, device=dev)
-    top = torch.zeros((B, F), dtype=dtype, device=dev)
-    ir = torch.zeros_like(top)
-    ir2 = torch.zeros_like(top)
-    lane = torch.arange(B, device=dev)
-    # Columns after the last valid entry of every lane are no-ops.
-    any_valid = torch.nonzero((srcs >= 0).any(0))
-    n_rows = int(any_valid[-1]) + 1 if any_valid.numel() else 0
-    for col in range(n_rows):
-        t, s = times[:, col], srcs[:, col]
-        valid = s >= 0
-        # Integrate the held rank over the in-window part of [t_prev, t).
-        t_clip = torch.clamp(torch.where(valid, t, t_prev), start, end)
-        dt = torch.clamp(t_clip - t_prev, min=0.0)[:, None]
-        rf = r.to(dtype)
-        top = _muladd(top, dt, (r < K).to(dtype))
-        ir = _muladd(ir, dt, rf)
-        ir2 = _muladd(ir2, dt * rf, rf)
-        # Then apply the event to the rank vector.
-        hit = adj[lane, torch.clamp(s, min=0).long()] & follows
-        own = (s == src_index)[:, None]
-        r_new = torch.where(hit, torch.where(own, 0, r + 1), r)
-        r = torch.where(valid[:, None], r_new, r).to(torch.int32)
-        t_prev = torch.maximum(t_prev, t_clip)
-    # Flush the final segment to the horizon.
-    dt = torch.clamp(end - t_prev, min=0.0)[:, None]
-    rf = r.to(dtype)
-    top = _muladd(top, dt, (r < K).to(dtype))
-    ir = _muladd(ir, dt, rf)
-    ir2 = _muladd(ir2, dt * rf, rf)
-    fl = follows.to(dtype)
-    return FeedMetrics(
-        time_in_top_k=top * fl, int_rank=ir * fl, int_rank2=ir2 * fl,
-        follows=follows, start_time=start, end_time=end,
-    )
+    with _telemetry.span("metrics.feed") as sp:
+        dtype = times.dtype
+        dev = times.device
+        B, S, F = adj.shape
+        follows = adj[:, src_index, :]                         # [B, F] bool
+        end = torch.tensor(end_time, dtype=dtype, device=dev)
+        start = torch.tensor(start_time, dtype=dtype, device=dev)
+        r = torch.zeros((B, F), dtype=torch.int32, device=dev)
+        t_prev = torch.full((B,), start_time, dtype=dtype, device=dev)
+        top = torch.zeros((B, F), dtype=dtype, device=dev)
+        ir = torch.zeros_like(top)
+        ir2 = torch.zeros_like(top)
+        lane = torch.arange(B, device=dev)
+        # Columns after the last valid entry of every lane are no-ops.
+        with _telemetry.span("metrics.feed.extent"):
+            any_valid = torch.nonzero((srcs >= 0).any(0))
+            n_rows = int(any_valid[-1]) + 1 if any_valid.numel() else 0
+        sp.set(columns=n_rows)
+        with _telemetry.span("metrics.feed.loop"):
+            for col in range(n_rows):
+                t, s = times[:, col], srcs[:, col]
+                valid = s >= 0
+                # Integrate the held rank over the in-window part of
+                # [t_prev, t).
+                t_clip = torch.clamp(torch.where(valid, t, t_prev), start, end)
+                dt = torch.clamp(t_clip - t_prev, min=0.0)[:, None]
+                rf = r.to(dtype)
+                top = _muladd(top, dt, (r < K).to(dtype))
+                ir = _muladd(ir, dt, rf)
+                ir2 = _muladd(ir2, dt * rf, rf)
+                # Then apply the event to the rank vector.
+                hit = adj[lane, torch.clamp(s, min=0).long()] & follows
+                own = (s == src_index)[:, None]
+                r_new = torch.where(hit, torch.where(own, 0, r + 1), r)
+                r = torch.where(valid[:, None], r_new, r).to(torch.int32)
+                t_prev = torch.maximum(t_prev, t_clip)
+            # Flush the final segment to the horizon.
+            dt = torch.clamp(end - t_prev, min=0.0)[:, None]
+            rf = r.to(dtype)
+            top = _muladd(top, dt, (r < K).to(dtype))
+            ir = _muladd(ir, dt, rf)
+            ir2 = _muladd(ir2, dt * rf, rf)
+        fl = follows.to(dtype)
+        return FeedMetrics(
+            time_in_top_k=top * fl, int_rank=ir * fl, int_rank2=ir2 * fl,
+            follows=follows, start_time=start, end_time=end,
+        )
 
 
 def feed_metrics(times, srcs, adj, src_index, end_time, K: int = 1,
@@ -109,4 +116,5 @@ def feed_metrics(times, srcs, adj, src_index, end_time, K: int = 1,
 def num_posts(srcs, src_index):
     """Posting budget actually spent: the tracked source's event count.
     Works on [E] or [B, E]."""
-    return (srcs == src_index).sum(dim=-1)
+    with _telemetry.span("metrics.num_posts"):
+        return (srcs == src_index).sum(dim=-1)

@@ -698,3 +698,18 @@ def test_two_ranks_share_the_card_over_gloo(card, tmp_path):
             "mesh_shape", "backend")
     assert {k: v for k, v in one.items() if k not in topo} == \
         {k: v for k, v in two.items() if k not in topo}
+
+
+def test_event_kernel_launches_lie_inside_their_spans_on_the_card(card):
+    """The spans and ``torch.profiler``'s records share one clock: in a
+    traced fused batch at small T, every event-kernel launch record lies
+    inside an ``engine.pallas.launch`` span."""
+    from redqueen_tpu_torch.smoke import span_cost
+
+    system = span_cost.Headline("fused", 256, 10.0, card)
+    system.batch(np.arange(256))
+    out = span_cost.traced_batch(system, np.arange(256) + 1, True)
+    assert out["launch_records"] > 0, \
+        "the profiler delivered no runtime records with the device's"
+    ek = out["event_kernel_launches"]
+    assert ek["of"] >= 1 and ek["inside_launch_span"] == ek["of"], ek
