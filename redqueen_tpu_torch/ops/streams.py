@@ -24,6 +24,7 @@ import torch
 
 from .. import device as _device
 from ..models import rmtpp
+from ..runtime import telemetry as _telemetry
 from ..runtime.numerics import DEFAULT_MAX_PROPOSALS, safe_div, safe_exp
 from . import prng
 from .sampling import (
@@ -86,6 +87,31 @@ def _slots(step, carry, shape, cap: int, device):
     return out
 
 
+def _graphed(block, state):
+    """``block`` (a function of a tuple of tensors returning the next
+    tuple, with no host work inside) captured once as a CUDA graph over
+    copies of ``state``: ``(run, buffers)``, where ``run(buffers)`` replays
+    the capture, leaving the block's result in the same buffers.  The
+    replay runs the captured kernels, so its results are the eager
+    block's, bit for bit, at one launch instead of one a kernel."""
+    buf = tuple(x.clone() for x in state)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        for into, x in zip(buf, block(buf)):
+            into.copy_(x)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+
+    def run(state):
+        graph.replay()
+        return state
+
+    return run, buf
+
+
 def hawkes_stream(key, l0, alpha, beta, t0, T, cap: int) -> Stream:
     """Exponential-kernel Hawkes events on (t0, T], carrying the time and
     the excitation: slot i's event is Ogata thinning
@@ -98,7 +124,12 @@ def hawkes_stream(key, l0, alpha, beta, t0, T, cap: int) -> Stream:
     chain at once.  Each slot sees the same proposals in the same order,
     so the stream is the same; the steps are the most proposals any one
     source makes in all, not the sum over slots of the most any source
-    makes in that slot."""
+    makes in that slot.
+
+    A step is some 600 small operations (three threefry blocks on the int64
+    carrier), so on the card the host's issue would set its pace: there
+    the ``PROBE_EVERY`` steps between two host checks run as one CUDA
+    graph, captured at the second check (the first block runs eagerly)."""
     dev = key.device
     l0, alpha, beta = torch.broadcast_tensors(*(
         torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -117,7 +148,9 @@ def hawkes_stream(key, l0, alpha, beta, t0, T, cap: int) -> Stream:
     pk = prng.fold_in(key, 0)
     tp, lbd = t, hawkes_intensity(t, l0, exc, exc_t, beta)
     n = torch.zeros(N, dtype=torch.int32, device=dev)
-    while _device.host_read((~done).any()):
+
+    def block(state):
+        pk, tp, lbd, n, exc, exc_t, t, slot, done = state
         for _ in range(PROBE_EVERY):
             run = ~done & (tp <= T) & (lbd > 0) & (n < DEFAULT_MAX_PROPOSALS)
             pk_new, tp_new, lbd_new, acc = thinning_proposal(
@@ -145,6 +178,20 @@ def hawkes_stream(key, l0, alpha, beta, t0, T, cap: int) -> Stream:
             lbd = torch.where(nxt, hawkes_intensity(t, l0, exc, exc_t, beta),
                               lbd)
             n = torch.where(nxt, torch.zeros_like(n), n)
+        return pk, tp, lbd, n, exc, exc_t, t, slot, done
+
+    state = (pk, tp, lbd, n, exc, exc_t, t, slot, done)
+    step = block
+    probes = 0
+    while _device.host_read((~state[-1]).any()):
+        probes += 1
+        if probes == 2 and dev.type == "cuda":
+            step, state = _graphed(block, state)
+        state = step(state)
+    # Counted once a stream, not a step: PROBE_EVERY steps follow each
+    # read that found a source still drawing, and one more read ends it.
+    _telemetry.counter("star.hawkes.steps", PROBE_EVERY * probes)
+    _telemetry.counter("star.hawkes.host_reads", probes + 1)
     out = out.reshape(shape + (cap + 1,))
     times, n_ev = _finish(out[..., :cap], t0, T)
     return Stream(times, n_ev, torch.isfinite(out[..., cap]))

@@ -22,6 +22,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models.base import KIND_OPT, map_weights
 from ..ops import prng
+from ..runtime import telemetry as _telemetry
 from ..sim import _as_keys
 from ..utils.metrics import FeedMetrics
 from . import comm
@@ -45,33 +46,48 @@ def _make_kernel(cfg: StarConfig, metric_K: int, compress: bool = True,
                  fire_mode: str = "auto"):
     """The star kernel for ``[B]`` lanes: ``kernel(wall, ctrl, keys) ->
     (own, n_posts, feed_times, wall_n, metrics, wall_trunc, post_trunc,
-    rec_trunc)``, every output with a leading ``[B]``."""
+    rec_trunc)``, every output with a leading ``[B]``.  Its two stages
+    are ``kernel.walls(wall, keys)`` (step 1) and ``kernel.rest(walls,
+    wall, ctrl)`` (steps 2 and 3), so that a retry after a record-budget
+    overflow reruns only the fires and the metrics."""
 
-    def kernel(wall: WallParams, ctrl: CtrlParams, keys: torch.Tensor):
+    def walls(wall: WallParams, keys: torch.Tensor):
         B, Fl, M = wall.kind.shape
         dev = keys.device
         feed_offset = comm.axis_index("feed") * Fl
         key_wall = prng.fold_in(keys, 101)
+
+        # 1) independent wall streams, one key per global slot f*M + m.
+        with _telemetry.span("star.streams"):
+            slot = (feed_offset * M
+                    + torch.arange(Fl * M, device=dev).reshape(Fl, M))
+            slot_keys = prng.fold_in(key_wall[:, None, None, :], slot[None])
+            st = _wall_streams(cfg, wall, slot_keys)
+            feed_times = torch.sort(st.times.reshape(B, Fl, -1),
+                                    dim=-1).values
+            wall_n = st.n.sum(-1).to(torch.int32)
+            wall_trunc = comm.pany(st.truncated.reshape(B, -1).any(-1),
+                                   "feed")
+        return feed_times, wall_n, wall_trunc, keys
+
+    def rest(walls_out, wall: WallParams, ctrl: CtrlParams):
+        feed_times, wall_n, wall_trunc, keys = walls_out
+        B, Fl, _ = wall.kind.shape
+        dev = keys.device
+        feed_offset = comm.axis_index("feed") * Fl
         key_tau = prng.fold_in(keys, 202)
         key_own = prng.fold_in(keys, 303)
 
-        # 1) independent wall streams, one key per global slot f*M + m.
-        slot = (feed_offset * M
-                + torch.arange(Fl * M, device=dev).reshape(Fl, M))
-        slot_keys = prng.fold_in(key_wall[:, None, None, :], slot[None])
-        st = _wall_streams(cfg, wall, slot_keys)
-        feed_times = torch.sort(st.times.reshape(B, Fl, -1), dim=-1).values
-        wall_n = st.n.sum(-1).to(torch.int32)
-        wall_trunc = comm.pany(st.truncated.reshape(B, -1).any(-1), "feed")
-
         # 2) the controlled broadcaster's posting times.
         if cfg.ctrl_kind == KIND_OPT:
-            rate_f = torch.sqrt(wall.s_sink / torch.clamp(
-                ctrl.q, min=1e-30)[:, None])
-            own, post_trunc, rec_trunc = _opt_fires(
-                cfg, feed_times, rate_f.to(feed_times.dtype), key_tau,
-                feed_offset,
-                compress=compress, fire_mode=fire_mode)
+            with _telemetry.span("star.fires", mode=fire_mode,
+                                 compress=compress):
+                rate_f = torch.sqrt(wall.s_sink / torch.clamp(
+                    ctrl.q, min=1e-30)[:, None])
+                own, post_trunc, rec_trunc = _opt_fires(
+                    cfg, feed_times, rate_f.to(feed_times.dtype), key_tau,
+                    feed_offset,
+                    compress=compress, fire_mode=fire_mode)
         else:
             s = _ctrl_stream(cfg, ctrl, key_own)
             own, post_trunc = s.times, s.truncated
@@ -79,10 +95,15 @@ def _make_kernel(cfg: StarConfig, metric_K: int, compress: bool = True,
         n_posts = torch.isfinite(own).sum(-1).to(torch.int32)
 
         # 3) per-feed metrics and the flags.
-        metrics = _feed_metrics_star(cfg, feed_times, own, metric_K)
+        with _telemetry.span("star.metrics"):
+            metrics = _feed_metrics_star(cfg, feed_times, own, metric_K)
         return (own, n_posts, feed_times, wall_n, metrics, wall_trunc,
                 post_trunc, rec_trunc)
 
+    def kernel(wall: WallParams, ctrl: CtrlParams, keys: torch.Tensor):
+        return rest(walls(wall, keys), wall, ctrl)
+
+    kernel.walls, kernel.rest = walls, rest
     return kernel
 
 
@@ -132,6 +153,7 @@ def _run_with_fallback(cfg: StarConfig, metric_K: int, ctrl: CtrlParams,
             return out
         except RecordBudgetOverflow:
             _COMPRESS_BLOCKLIST.add(key)
+            _telemetry.counter("star.fires.uncompressed")
     out = run(False)
     _check_overflow(cfg, out[5], out[6], lane_sum=lane_sum)
     return out
@@ -146,10 +168,11 @@ def _check_overflow(cfg: StarConfig, wall_trunc, post_trunc, rec_trunc=None,
     kernel); ``lane_sum`` adds them up over a lane axis."""
     flags = [wall_trunc, post_trunc] + ([rec_trunc] if rec_trunc is not None
                                         else [])
-    counts = torch.stack([f.reshape(-1).sum() for f in flags])
-    if lane_sum is not None:
-        counts = lane_sum(counts)
-    counts = counts.tolist()
+    with _telemetry.span("star.checks"):
+        counts = torch.stack([f.reshape(-1).sum() for f in flags])
+        if lane_sum is not None:
+            counts = lane_sum(counts)
+        counts = counts.tolist()
     n_wall, n_post = counts[0], counts[1]
     if rec_trunc is not None and counts[2]:
         raise RecordBudgetOverflow(
@@ -233,12 +256,16 @@ def simulate_star(cfg: StarConfig, wall: WallParams, ctrl: CtrlParams,
                       else seed)
     keys = _as_keys(seed[None], dev)
 
+    streams = []   # sampled once: a retry reruns the fires and metrics
+
     def run(compress):
         fn = _get_fn(cfg, metric_K, compress, fire_mode, dev,
                      feed_sharded=mesh is not None)
         with (comm.bind(mesh) if mesh is not None
               else contextlib.nullcontext()):
-            return fn(wall_b, ctrl_b, keys)
+            if not streams:
+                streams.append(fn.walls(wall_b, keys))
+            return fn.rest(streams[0], wall_b, ctrl_b)
 
     own, n_posts, feed_times, wall_n, metrics, *_ = _run_with_fallback(
         cfg, metric_K, ctrl_b, wall, run)
@@ -297,47 +324,63 @@ def simulate_star_batch(cfg: StarConfig, wall: WallParams, ctrl: CtrlParams,
     outputs are marked as sharded: ``own_times``/``n_posts`` over
     ``axis``, ``wall_n`` and the per-feed metrics over both."""
     dev = resolve_device(device)
-    keys = _as_keys(seeds, dev)
-    B = keys.shape[0]
-    if wall.kind.shape[0] != B:
-        raise ValueError(
-            f"batch dims disagree: seeds={B}, wall={wall.kind.shape[0]}")
-    if ctrl.q.dim() != 1 or ctrl.q.shape[0] != B:
-        raise ValueError(
-            f"batch dims disagree: seeds={B}, ctrl="
-            f"{ctrl.q.shape[0] if ctrl.q.dim() else 'unbatched'} — build the "
-            f"batch with stack_star/broadcast_star")
-    feed_sharded = mesh is not None and feed_axis is not None
-    _check_fire_mode(fire_mode, feed_sharded=feed_sharded)
-    _check_wall_kinds(cfg, wall)
-    if feed_axis is not None:
-        _feed_axis_name(feed_axis)
-    wall, ctrl = wall.to(dev), ctrl.to(dev)
-    wall_l, ctrl_l, keys_l, lane_sum = wall, ctrl, keys, None
-    if mesh is not None:
-        _check_divides(B, "batch", mesh, axis)
-        if feed_sharded:
-            _check_divides(cfg.n_feeds, "n_feeds", mesh, feed_axis)
-        wall_l = comm.block(wall, mesh, comm.P(axis, feed_axis))
-        ctrl_l, keys_l = comm.block((ctrl, keys), mesh, comm.P(axis))
+    # The call's stages under names of the port's own (the JAX package's
+    # star has no telemetry): the input checks and the overflow read
+    # (``star.checks``), then the kernel's ``star.streams``,
+    # ``star.fires`` and ``star.metrics``.
+    with _telemetry.span("star.simulate_batch") as root:
+        with _telemetry.span("star.checks"):
+            keys = _as_keys(seeds, dev)
+            B = keys.shape[0]
+            if wall.kind.shape[0] != B:
+                raise ValueError(
+                    f"batch dims disagree: seeds={B}, "
+                    f"wall={wall.kind.shape[0]}")
+            if ctrl.q.dim() != 1 or ctrl.q.shape[0] != B:
+                raise ValueError(
+                    f"batch dims disagree: seeds={B}, ctrl="
+                    f"{ctrl.q.shape[0] if ctrl.q.dim() else 'unbatched'} "
+                    f"— build the batch with stack_star/broadcast_star")
+            feed_sharded = mesh is not None and feed_axis is not None
+            _check_fire_mode(fire_mode, feed_sharded=feed_sharded)
+            _check_wall_kinds(cfg, wall)
+            if feed_axis is not None:
+                _feed_axis_name(feed_axis)
+            wall, ctrl = wall.to(dev), ctrl.to(dev)
+            wall_l, ctrl_l, keys_l, lane_sum = wall, ctrl, keys, None
+            if mesh is not None:
+                _check_divides(B, "batch", mesh, axis)
+                if feed_sharded:
+                    _check_divides(cfg.n_feeds, "n_feeds", mesh, feed_axis)
+                wall_l = comm.block(wall, mesh, comm.P(axis, feed_axis))
+                ctrl_l, keys_l = comm.block((ctrl, keys), mesh, comm.P(axis))
 
-        def lane_sum(counts):
-            return comm.mesh_reduce(counts, mesh, "SUM", axis)
+                def lane_sum(counts):
+                    return comm.mesh_reduce(counts, mesh, "SUM", axis)
+        root.set(lanes=B, feeds=cfg.n_feeds, fire_mode=_resolve_fire_mode(
+            fire_mode, feed_sharded, dev))
 
-    def run(compress):
-        fn = _get_fn(cfg, metric_K, compress, fire_mode, dev,
-                     feed_sharded=feed_sharded)
-        with (comm.bind(mesh) if feed_sharded
-              else contextlib.nullcontext()):
-            return fn(wall_l, ctrl_l, keys_l)
+        streams = []   # sampled once: a retry reruns the fires, metrics
 
-    own, n_posts, _ft, wall_n, metrics, *_ = _run_with_fallback(
-        cfg, metric_K, ctrl, wall, run, lane_sum)
+        def run(compress):
+            fn = _get_fn(cfg, metric_K, compress, fire_mode, dev,
+                         feed_sharded=feed_sharded)
+            with (comm.bind(mesh) if feed_sharded
+                  else contextlib.nullcontext()):
+                if not streams:
+                    streams.append(fn.walls(wall_l, keys_l))
+                return fn.rest(streams[0], wall_l, ctrl_l)
+
+        own, n_posts, feed_times, wall_n, metrics, *_ = _run_with_fallback(
+            cfg, metric_K, ctrl, wall, run, lane_sum)
     if mesh is None:
         return StarBatchResult(own_times=own, n_posts=n_posts,
-                               wall_n=wall_n, metrics=metrics, cfg=cfg)
+                               wall_n=wall_n, metrics=metrics, cfg=cfg,
+                               wall_times=feed_times)
     return StarBatchResult(
         own_times=comm.mark(own, mesh, comm.P(axis, None)),
         n_posts=comm.mark(n_posts, mesh, comm.P(axis)),
         wall_n=comm.mark(wall_n, mesh, comm.P(axis, feed_axis)),
-        metrics=_sharded_metrics(metrics, mesh, axis, feed_axis), cfg=cfg)
+        metrics=_sharded_metrics(metrics, mesh, axis, feed_axis), cfg=cfg,
+        wall_times=comm.mark(feed_times, mesh, comm.P(axis, feed_axis,
+                                                      None)))

@@ -20,6 +20,7 @@ from ..models.base import (
     KIND_RMTPP,
 )
 from ..ops import streams
+from ..runtime import telemetry as _telemetry
 from .star_types import _EMPTY, StarConfig, WallParams
 
 __all__ = ["_wall_branches", "_wall_streams", "_ctrl_stream",
@@ -64,8 +65,10 @@ def _wall_branches(cfg: StarConfig):
         return streams.poisson_stream(keys, p["rate"], t0, T, cap)
 
     def b_hawkes(p, keys):
-        return streams.hawkes_stream(keys, p["l0"], p["alpha"], p["beta"],
-                                     t0, T, cap)
+        with _telemetry.span("star.streams.hawkes",
+                             sources=int(keys.shape[0])):
+            return streams.hawkes_stream(keys, p["l0"], p["alpha"],
+                                         p["beta"], t0, T, cap)
 
     def b_piecewise(p, keys):
         return streams.piecewise_stream(keys, p["pw_times"], p["pw_rates"],

@@ -117,13 +117,17 @@ class StarResult(NamedTuple):
 
 class StarBatchResult(NamedTuple):
     """Result of a batched star run: tensors with a leading [B] axis
-    (``metrics`` holds [B, F] tensors)."""
+    (``metrics`` holds [B, F] tensors).  ``wall_times`` [B, F,
+    M*wall_cap], each lane's per-feed merged ascending +inf-padded wall
+    events as ``StarResult`` has them, is the port's addition (last, so
+    that the reference's fields keep their places)."""
 
     own_times: torch.Tensor   # [B, post_cap]
     n_posts: torch.Tensor     # [B]
     wall_n: torch.Tensor      # [B, F]
     metrics: FeedMetrics
     cfg: StarConfig
+    wall_times: Optional[torch.Tensor] = None   # [B, F, M*wall_cap]
 
 
 class RecordBudgetOverflow(RuntimeError):

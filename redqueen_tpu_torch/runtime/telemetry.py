@@ -377,7 +377,7 @@ class _Span:
     record to the owning telemetry instance."""
 
     __slots__ = ("_tel", "name", "tid", "parent", "sid", "attrs",
-                 "events", "_t0", "t_ns", "dur_ns")
+                 "events", "_t0", "t_ns", "dur_raw")
 
     def __init__(self, tel: "Telemetry", name: str, tid: str,
                  parent: Optional[int], attrs: Optional[Dict[str, Any]]):
@@ -390,19 +390,26 @@ class _Span:
         self.events: Optional[List[Any]] = None
         self._t0 = 0       # monotonic entry read
         self.t_ns = 0      # entry on the wall clock, set at exit
-        self.dur_ns = 0
+        self.dur_raw = 0   # in the clock's unit
 
     def __enter__(self):
         tel = self._tel
         self.sid = next(tel._sid)
         tel._stack().append((self.tid, self.sid))
-        self._t0 = tel._clock()
+        if tel._clock_s is not None:
+            self.t_ns = time.time_ns()
+            self._t0 = tel._clock_s()
+        else:
+            self._t0 = tel._clock()
         return self
 
     def __exit__(self, et, ev, tb):
         tel = self._tel
-        self.dur_ns = tel._clock() - self._t0
-        self.t_ns = self._t0 + tel._anchor_ns
+        if tel._clock_s is not None:
+            self.dur_raw = tel._clock_s() - self._t0
+        else:
+            self.dur_raw = tel._clock() - self._t0
+            self.t_ns = self._t0 + tel._anchor_ns
         stack = tel._stack()
         if stack and stack[-1] == (self.tid, self.sid):
             stack.pop()
@@ -422,16 +429,23 @@ class _Span:
         """Point annotation at the current offset into this span."""
         if self.events is None:
             self.events = []
-        off = (self._tel._clock() - self._t0) / 1e9
+        tel = self._tel
+        off = (tel._clock_s() - self._t0 if tel._clock_s is not None
+               else (tel._clock() - self._t0) / 1e9)
         self.events.append([str(name), round(off, 9), attrs or None])
         return self
+
+    def _dur_s(self) -> float:
+        if self._tel._clock_s is not None:
+            return self.dur_raw
+        return self.dur_raw / 1e9
 
     def to_dict(self) -> Dict[str, Any]:
         d: Dict[str, Any] = {"tid": self.tid, "sid": self.sid,
                              "name": self.name,
                              "t": round(self.t_ns / 1e9, 6),
                              "t_ns": self.t_ns,
-                             "dur": round(self.dur_ns / 1e9, 9),
+                             "dur": round(self._dur_s(), 9),
                              "pid": self._tel._pid}
         if self.parent is not None:
             d["parent"] = self.parent
@@ -488,9 +502,14 @@ class Telemetry:
                  flight: Optional[str] = None,
                  flight_capacity: int = FLIGHT_DEFAULT_CAPACITY,
                  max_spans: int = MAX_BUFFERED_SPANS,
-                 clock=time.perf_counter_ns):
+                 clock=None):
         self._lock = threading.Lock()
-        self._clock = clock   # monotonic integer nanoseconds
+        # ``clock`` is the reference's: a monotonic clock in seconds,
+        # which a span reads at entry and exit (its start on the wall
+        # clock is then ``time.time_ns()`` at entry).  By default the
+        # spans read integer nanoseconds and anchor them to the wall.
+        self._clock_s = clock
+        self._clock = time.perf_counter_ns
         self._anchor_ns = 0
         self._pid = os.getpid()
         # Span ids must be unique across PROCESSES within one trace (a
@@ -689,8 +708,12 @@ class Telemetry:
             parent = None
         s = _Span(self, name, tid, parent, attrs or None)
         s.sid = next(self._sid)
-        s._t0 = self._clock()
-        s.t_ns = s._t0 + self._anchor_ns
+        if self._clock_s is not None:
+            s._t0 = self._clock_s()
+            s.t_ns = time.time_ns()
+        else:
+            s._t0 = self._clock()
+            s.t_ns = s._t0 + self._anchor_ns
         self._finish(s)
 
     def counter(self, name: str, n: float = 1) -> None:

@@ -320,6 +320,68 @@ def test_star_batch_lanes_equal_single_runs_on_card(card):
         assert torch.equal(one.own_times, rb.own_times[i])
 
 
+def test_star_hawkes_batch_matches_the_reference_on_card(card):
+    """Config 2's model at a small size on the card: each lane's walls as
+    its single run's, and walls, posts and time on top within
+    ``tests/test_torch_star_reference.py``'s tolerances of the
+    benchmark's plain reference."""
+    from portbench.reference import star as ref
+
+    F, T, seeds = 24, 20.0, np.array([5, 2 ** 31 + 17, 123456789])
+    rng = np.random.RandomState(0)
+    l0 = rng.uniform(0.3, 1.0, F).astype(np.float32)
+    beta = rng.uniform(1.0, 3.0, F).astype(np.float32)
+    alpha = (beta * rng.uniform(0.2, 0.8, F)).astype(np.float32)
+    sb = rt.StarBuilder(n_feeds=F, end_time=T)
+    for f in range(F):
+        sb.wall_hawkes(f, float(l0[f]), float(alpha[f]), float(beta[f]))
+    sb.ctrl_opt(q=1.0)
+    cfg, wall, ctrl = sb.build(wall_cap=128, post_cap=1024, device=card)
+    rb = rt.simulate_star_batch(cfg, *rt.broadcast_star(wall, ctrl, 3),
+                                seeds, device=card)
+    for i, s in enumerate(seeds):
+        one = rt.simulate_star(cfg, wall, ctrl, seed=int(s), device=card)
+        assert torch.equal(one.wall_times, rb.wall_times[i])
+    star = ref.Star(*(torch.tensor(x, dtype=torch.float64)
+                      for x in (l0, alpha, beta, np.ones(F))),
+                    end_time=T, post_cap=1024, wall_cap=128)
+    times, n = rb.wall_times.cpu(), rb.wall_n.cpu()
+    own, n_p = rb.own_times.cpu(), rb.n_posts.cpu()
+    wg, _, _ = ref.check_walls(star, seeds, times, n)
+    pg = ref.check_posts(star, seeds, times, n, own, n_p)
+    top, mean = ref.top1(star, times, n, own, n_p)
+    assert float(wg.max()) <= 1e-4 and float(pg.max()) <= 1e-4
+    assert float((rb.metrics.time_in_top_k.cpu().double() - top).abs()
+                 .max()) <= 1e-4
+    assert float((rb.metrics.mean_time_in_top_k().cpu().double() - mean)
+                 .abs().max()) <= 1e-4
+
+
+def test_hawkes_stream_graph_equals_eager_on_card(card, monkeypatch):
+    """The thinning loop's blocks replayed as one CUDA graph give the
+    streams of the same loop run eagerly, bit for bit, and the graph is
+    captured once."""
+    from redqueen_tpu_torch.ops import prng, streams
+
+    N = 5000
+    key = prng.PRNGKey(torch.arange(N, device=card) + 2 ** 31 + 3)
+    g = torch.Generator().manual_seed(0)
+    l0 = (0.2 + torch.rand(N, generator=g)).to(card)
+    beta = (1.0 + 2.0 * torch.rand(N, generator=g)).to(card)
+    alpha = beta * (0.2 + 0.6 * torch.rand(N, generator=g)).to(card)
+    captures = []
+    real = streams._graphed
+    monkeypatch.setattr(streams, "_graphed", lambda *a: captures.append(1)
+                        or real(*a))
+    graphed = streams.hawkes_stream(key, l0, alpha, beta, 0.0, 50.0, 256)
+    monkeypatch.setattr(streams, "_graphed", lambda block, state: (
+        block, state))
+    eager = streams.hawkes_stream(key, l0, alpha, beta, 0.0, 50.0, 256)
+    assert captures == [1] and int(eager.n.sum()) > 50 * N
+    for a, b in zip(graphed, eager):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("engine", ["fused", "scan"])
 def test_simulate_ragged_bucketed_equals_dense_on_card(card, engine):
     counts = np.array([1, 2, 3, 9, 16, 5, 12, 2, 16, 7] * 3)

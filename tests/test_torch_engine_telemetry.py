@@ -274,3 +274,39 @@ def test_flight_ring_keeps_the_scan_engine_spans_of_a_traced_run(tmp_path):
               if s["name"] in ("engine.scan.superchunk", "engine.scan.sync",
                                "engine.scan.drive")}
     assert engine <= {s["sid"] for s in salvage}
+
+
+class _SecondsClock:
+    """A monotonic clock in seconds that moves by half a second a read."""
+
+    def __init__(self):
+        self.now = 100.0
+
+    def __call__(self):
+        self.now += 0.5
+        return self.now
+
+
+def test_a_seconds_clock_keeps_the_references_meaning():
+    """``Telemetry(clock=)`` takes the reference's clock in seconds: the
+    same fake clock gives both packages the same durations and event
+    offsets; the default clock keeps integer nanoseconds on the wall."""
+    got = []
+    for tel in (JT.Telemetry(enabled=True, clock=_SecondsClock()),
+                T.Telemetry(enabled=True, clock=_SecondsClock())):
+        with tel.span("outer") as sp:
+            sp.event("mark")
+            with tel.span("inner"):
+                pass
+        tel.event("point")
+        got.append(sorted((s["name"], s["dur"], str(s.get("events")))
+                          for s in tel.drain_spans()))
+    assert got[0] == got[1]
+    assert dict((n, d) for n, d, _ in got[1]) == {
+        "outer": 2.0, "inner": 0.5, "point": 0.0}
+    t0 = time.time_ns()
+    tel = T.Telemetry(enabled=True, clock=_SecondsClock())
+    with tel.span("x"):
+        pass
+    (s,) = tel.drain_spans()
+    assert isinstance(s["t_ns"], int) and t0 <= s["t_ns"] <= time.time_ns()
