@@ -56,7 +56,8 @@ Phases, each reported on its own line:
    the card against the same code on the CPU (wall streams identical but
    for thinning near-ties, at most 2% of feeds; posts within rtol 1e-5);
    (d) config 2 (1,000 Hawkes feeds) timed with its split into streams,
-   fires and metrics, seed 0's mean wall count within 4 sigma of the
+   fires and metrics, its star batch one launch of the thinning kernel
+   (counted from zero), seed 0's mean wall count within 4 sigma of the
    Hawkes closed form; (e) config 4 (100,000 replay feeds, q = 2,500)
    timed and split, seed 0 bit-identical in both fire modes with and
    without compression; (f) power-law ragged lanes (B = 10,000, up to 16
@@ -190,13 +191,25 @@ Phases, each reported on its own line:
    lanes and over lanes x feeds; (e) ``run_preset`` of config 1 at
    1,024 seeds on ``{"data": 2}``.
 
+14. the Hawkes thinning kernel (``csrc/hawkes_thin.cu``) at the star
+   cell's shape (256 lanes x 1,000 config-2 feeds = 256,000 sources, T =
+   100, rows of 1,024): its streams bit for bit those of the plain loop
+   ``streams._hawkes_stream_plain`` on the same keys (``times`` as
+   int32, ``n``, ``truncated``), after an untimed round 10 launches
+   timed on the device alone and 10 through ``streams.hawkes_stream``
+   with the host's work, the
+   plain loop timed once, the bound (``smoke/hawkes_thin.py:bound``) and
+   the launches counted (one a stream; phase 7 (d)'s star batch is one
+   launch, counted from zero).
+
 Every event-kernel comparison holds every lane bit-identical: ``srcs``,
 ``n_events``, health, counters and ``times``.
 
 The phases' bodies live in ``redqueen_tpu_torch/smoke/``, one module per
 group (``fused``: 1-5, ``scan``: 6, ``presets``: 7, ``config5``: 8,
 ``learn``: 9, ``serving``: 10, ``cluster``: 11, ``runtime``: 12,
-``mesh``: 13, and ``common``); this script runs them in order.
+``mesh``: 13, ``hawkes_thin``: 14, and ``common``); this script runs
+them in order.
 
 Any failed check exits non-zero.  The last three lines are JSON: every
 measurement of the run (``{"measurements": {...}}``), the kernel table
@@ -308,6 +321,7 @@ from redqueen_tpu_torch.smoke.cluster import \
     card_against_cpu as cluster_card_against_cpu
 from redqueen_tpu_torch.smoke.runtime import phase_runtime
 from redqueen_tpu_torch.smoke.mesh import phase_mesh
+from redqueen_tpu_torch.smoke.hawkes_thin import phase_hawkes_thin, thin_row
 
 
 def main():
@@ -333,6 +347,7 @@ def main():
     result["runtime"] = ph12 = phase_runtime(dev)
     print(json.dumps({"runtime": ph12}))
     result["mesh"] = ph13 = phase_mesh(dev)
+    result["hawkes_thin"] = ph14 = phase_hawkes_thin(dev)
     n_launch = len(hl["kernel_ms_per_launch"])
     row = {
         "name": "event_kernel", "route": "cuda",
@@ -373,7 +388,8 @@ def main():
     result["total_s"] = time.perf_counter() - t_start
     print(f"total {result['total_s']:.1f} s")
     print(json.dumps({"measurements": result}))
-    print(json.dumps({"kernels": [row, hawkes_row]}))
+    thin = thin_row(ph14, result["presets"]["config2"]["thin_launches"])
+    print(json.dumps({"kernels": [row, hawkes_row, thin]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,9 +4,10 @@ Each ``csrc/*.cu`` file is compiled with ``nvcc`` into a shared library
 with a plain C interface on first use (one ``nvcc`` per source, all
 started together), cached by the content of the source, the headers and
 the flags under ``redqueen_tpu_torch/_build/``, and loaded with
-``ctypes``.  Two kernels: the event kernel of the fused engine
-(``csrc/event_kernel.cu``) and the Hawkes event pass of the learn path
-(``csrc/hawkes_pass.cu``).
+``ctypes``.  Three kernels: the event kernel of the fused engine
+(``csrc/event_kernel.cu``), the Hawkes event pass of the learn path
+(``csrc/hawkes_pass.cu``) and the Hawkes thinning of the star engine's
+streams (``csrc/hawkes_thin.cu``).
 Nothing here runs when the module is imported, so the CPU tests import it
 on machines without ``nvcc``.
 
@@ -29,13 +30,14 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..runtime.numerics import DEFAULT_MAX_PROPOSALS
 from .event_step import CARRY_NAMES, PARAM_NAMES, KernelSpec
 
 __all__ = ["MAX_S", "HAWKES_MAX_D", "NVCC_FLAGS", "BUILD_DIR", "build",
            "LAUNCHES", "reset_launch_counts", "check_kernel_shape",
            "Geometry", "geometry", "launch_event_kernel",
            "threefry_on_device", "hawkes_segments", "launch_hawkes_pass",
-           "launch_hawkes_carry"]
+           "launch_hawkes_carry", "launch_hawkes_thin"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -57,7 +59,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else.
 LAUNCHES: Dict[str, int] = {"event_kernel": 0, "threefry": 0,
-                            "hawkes_pass": 0, "hawkes_carry": 0}
+                            "hawkes_pass": 0, "hawkes_carry": 0,
+                            "hawkes_thin": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: Compiler output of the last build, per source (ptxas register report).
@@ -185,6 +188,21 @@ def _hawkes_lib() -> ctypes.CDLL:
             f"{lib.rq_hawkes_max_dims()} disagrees with ops.kernels "
             f"HAWKES_MAX_D={HAWKES_MAX_D}")
     _LIBS["hawkes_pass"] = lib
+    return lib
+
+
+def _thin_lib() -> ctypes.CDLL:
+    lib = _LIBS.get("hawkes_thin")
+    if lib is not None:
+        return lib
+    lib = _load("hawkes_thin")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rq_hawkes_thin_error_string.argtypes = [ci]
+    lib.rq_hawkes_thin_error_string.restype = ctypes.c_char_p
+    lib.rq_hawkes_thin_launch.argtypes = (
+        [vp] * 4 + [ci, ci, ctypes.c_float, ctypes.c_float, ci] + [vp] * 5)
+    lib.rq_hawkes_thin_launch.restype = ci
+    _LIBS["hawkes_thin"] = lib
     return lib
 
 
@@ -436,3 +454,44 @@ def launch_hawkes_carry(dt: torch.Tensor, dims: torch.Tensor,
     _hawkes_check(lib, rc, "hawkes_carry")
     LAUNCHES["hawkes_carry"] += 1
     return r_in, q_in
+
+
+def launch_hawkes_thin(key: torch.Tensor, l0: torch.Tensor,
+                       alpha: torch.Tensor, beta: torch.Tensor, t0: float,
+                       T: float, cap: int):
+    """The finished Hawkes streams of ``N`` sources in one launch of the
+    thinning kernel: ``key`` i32 [N, 2] (uint32 bit patterns), ``l0``,
+    ``alpha``, ``beta`` f32 [N], all on one CUDA device.  Returns
+    ``(times f32 [N, cap], n i32 [N], truncated bool [N], steps)``, the
+    stream ``ops.streams._hawkes_stream_plain`` gives from the same key;
+    ``steps`` is an i32 [1] CUDA tensor that will hold the most loop
+    steps any source needed.  A chain
+    stops after ``numerics.DEFAULT_MAX_PROPOSALS`` proposals, as the
+    plain loop's does.  Every input is checked before the library is
+    loaded."""
+    dev = key.device
+    N = key.shape[0] if key.dim() == 2 else -1
+    _require(key, "key", torch.int32, (N, 2), dev)
+    for nm, t in (("l0", l0), ("alpha", alpha), ("beta", beta)):
+        _require(t, nm, torch.float32, (N,), dev)
+    if dev.type != "cuda":
+        raise ValueError(f"launch_hawkes_thin takes CUDA tensors, got {dev}")
+    if cap < 0:
+        raise ValueError(f"launch_hawkes_thin takes cap >= 0, got {cap}")
+    lib = _thin_lib()
+    times = torch.full((N, cap), float("inf"), dtype=torch.float32,
+                       device=dev)
+    n = torch.empty(N, dtype=torch.int32, device=dev)
+    truncated = torch.empty(N, dtype=torch.bool, device=dev)
+    steps = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.rq_hawkes_thin_launch(
+        key.data_ptr(), l0.data_ptr(), alpha.data_ptr(), beta.data_ptr(), N,
+        cap, float(t0), float(T), DEFAULT_MAX_PROPOSALS, times.data_ptr(),
+        n.data_ptr(), truncated.data_ptr(), steps.data_ptr(), stream)
+    if rc != 0:
+        msg = lib.rq_hawkes_thin_error_string(rc).decode(errors="replace")
+        raise RuntimeError(
+            f"hawkes_thin launch failed: CUDA error {rc} ({msg})")
+    LAUNCHES["hawkes_thin"] += 1
+    return times, n, truncated, steps

@@ -14,7 +14,9 @@ The Hawkes, piecewise and RMTPP samplers are a ``lax.scan`` over ``cap +
 1`` slots in the JAX package.  Here they are loops that stop once every
 source has absorbed (its clock at +inf): every later slot of the scan is
 +inf, so the stream is the same.  The host checks for a live source
-once every few steps (``sampling.PROBE_EVERY``)."""
+once every few steps (``sampling.PROBE_EVERY``).  On the card the Hawkes
+sampler is one launch of a hand-written kernel instead, which walks each
+source's stream to its end in one thread."""
 
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from .. import device as _device
 from ..models import rmtpp
 from ..runtime import telemetry as _telemetry
 from ..runtime.numerics import DEFAULT_MAX_PROPOSALS, safe_div, safe_exp
-from . import prng
+from . import kernels, prng, threefry
 from .sampling import (
     PROBE_EVERY,
     hawkes_intensity,
@@ -87,35 +89,51 @@ def _slots(step, carry, shape, cap: int, device):
     return out
 
 
-def _graphed(block, state):
-    """``block`` (a function of a tuple of tensors returning the next
-    tuple, with no host work inside) captured once as a CUDA graph over
-    copies of ``state``: ``(run, buffers)``, where ``run(buffers)`` replays
-    the capture, leaving the block's result in the same buffers.  The
-    replay runs the captured kernels, so its results are the eager
-    block's, bit for bit, at one launch instead of one a kernel."""
-    buf = tuple(x.clone() for x in state)
-    graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        graph.capture_begin()
-        for into, x in zip(buf, block(buf)):
-            into.copy_(x)
-        graph.capture_end()
-    torch.cuda.current_stream().wait_stream(side)
-
-    def run(state):
-        graph.replay()
-        return state
-
-    return run, buf
-
-
 def hawkes_stream(key, l0, alpha, beta, t0, T, cap: int) -> Stream:
     """Exponential-kernel Hawkes events on (t0, T], carrying the time and
     the excitation: slot i's event is Ogata thinning
     (``sampling.hawkes_next_time``) from ``fold_in(key, i)``.
+
+    On the card one launch of the thinning kernel
+    (``csrc/hawkes_thin.cu``) walks each source's whole stream in one
+    thread and writes the finished stream; on the CPU the plain loop
+    :func:`_hawkes_stream_plain` runs.  Both give the same bits."""
+    if key.device.type == "cuda":
+        return _hawkes_stream_kernel(key, l0, alpha, beta, t0, T, cap)
+    return _hawkes_stream_plain(key, l0, alpha, beta, t0, T, cap)
+
+
+def _hawkes_params(key, l0, alpha, beta):
+    """``(shape, key [N, 2], l0, alpha, beta [N])``: the parameters
+    broadcast to one shape and flattened, the key expanded to it."""
+    l0, alpha, beta = torch.broadcast_tensors(*(
+        torch.as_tensor(x, dtype=torch.float32, device=key.device)
+        for x in (l0, alpha, beta)))
+    shape = l0.shape
+    N = l0.numel()
+    return (shape, key.expand(shape + (2,)).reshape(N, 2), l0.reshape(-1),
+            alpha.reshape(-1), beta.reshape(-1))
+
+
+def _hawkes_stream_kernel(key, l0, alpha, beta, t0, T, cap: int) -> Stream:
+    """:func:`hawkes_stream` on the card: one launch of the thinning
+    kernel.  The most steps any source needed (``star.hawkes.steps``,
+    exact) is read to the host only while telemetry records."""
+    shape, key, l0, alpha, beta = _hawkes_params(key, l0, alpha, beta)
+    times, n, truncated, steps = kernels.launch_hawkes_thin(
+        threefry.to_bits32(key), l0.contiguous(), alpha.contiguous(),
+        beta.contiguous(), t0, T, cap)
+    _telemetry.counter("star.hawkes.kernel")
+    if _telemetry.get().enabled:
+        _telemetry.counter("star.hawkes.steps",
+                           _device.host_read(steps)[0])
+    _telemetry.counter("star.hawkes.host_reads", 0)
+    return Stream(times.reshape(shape + (cap,)), n.reshape(shape),
+                  truncated.reshape(shape))
+
+
+def _hawkes_stream_plain(key, l0, alpha, beta, t0, T, cap: int) -> Stream:
+    """The plain version of :func:`hawkes_stream`, on any device.
 
     The JAX sampler runs one thinning loop per slot, and every loop waits
     for the source that needs the most proposals.  Here each source moves
@@ -124,20 +142,11 @@ def hawkes_stream(key, l0, alpha, beta, t0, T, cap: int) -> Stream:
     chain at once.  Each slot sees the same proposals in the same order,
     so the stream is the same; the steps are the most proposals any one
     source makes in all, not the sum over slots of the most any source
-    makes in that slot.
-
-    A step is some 600 small operations (three threefry blocks on the int64
-    carrier), so on the card the host's issue would set its pace: there
-    the ``PROBE_EVERY`` steps between two host checks run as one CUDA
-    graph, captured at the second check (the first block runs eagerly)."""
+    makes in that slot.  The host checks for a source still drawing once
+    every ``PROBE_EVERY`` steps."""
     dev = key.device
-    l0, alpha, beta = torch.broadcast_tensors(*(
-        torch.as_tensor(x, dtype=torch.float32, device=dev)
-        for x in (l0, alpha, beta)))
-    shape = l0.shape
-    l0, alpha, beta = l0.reshape(-1), alpha.reshape(-1), beta.reshape(-1)
+    shape, key, l0, alpha, beta = _hawkes_params(key, l0, alpha, beta)
     N = l0.numel()
-    key = key.expand(shape + (2,)).reshape(N, 2)
     inf = float("inf")
     out = torch.full((N, cap + 1), inf, dtype=torch.float32, device=dev)
     t = torch.full((N,), float(t0), dtype=torch.float32, device=dev)
@@ -181,13 +190,10 @@ def hawkes_stream(key, l0, alpha, beta, t0, T, cap: int) -> Stream:
         return pk, tp, lbd, n, exc, exc_t, t, slot, done
 
     state = (pk, tp, lbd, n, exc, exc_t, t, slot, done)
-    step = block
     probes = 0
     while _device.host_read((~state[-1]).any()):
         probes += 1
-        if probes == 2 and dev.type == "cuda":
-            step, state = _graphed(block, state)
-        state = step(state)
+        state = block(state)
     # Counted once a stream, not a step: PROBE_EVERY steps follow each
     # read that found a source still drawing, and one more read ends it.
     _telemetry.counter("star.hawkes.steps", PROBE_EVERY * probes)

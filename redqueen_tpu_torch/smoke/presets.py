@@ -238,10 +238,17 @@ def star_stage_line(label, out, run_s, stages):
 
 
 def star_config2(dev, kw=PRESET_FULL[2], seeds=PRESET_SEEDS[2]):
-    """(d) config 2 at its full settings, timed with its stages; seed 0's
-    mean wall count per feed within 4 sigma of the Hawkes closed form."""
+    """(d) config 2 at its full settings, timed with its stages, its star
+    batch one launch of the thinning kernel on the card (none on the
+    CPU); seed 0's mean wall count per feed within 4 sigma of the Hawkes
+    closed form."""
+    kernels.reset_launch_counts()
     out, bundle, b_s, run_s, stages = timed_preset(2, kw, seeds, dev,
                                                    stages=True)
+    thin = kernels.LAUNCHES["hawkes_thin"]
+    want = 1 if torch.device(dev).type == "cuda" else 0
+    check(thin == want, f"(d) config 2: {thin} launches of the thinning "
+                        f"kernel in one star batch, not {want}")
     _, cfg, wall, ctrl = bundle
     res0 = rt.simulate_star(cfg, wall, ctrl, seed=0, device=dev)
     walls = res0.wall_n.double().cpu().numpy()
@@ -259,6 +266,7 @@ def star_config2(dev, kw=PRESET_FULL[2], seeds=PRESET_SEEDS[2]):
           f"sigma {4 * se:.3f}; {res0.n_posts} posts; build {b_s:.3f} s")
     return {"lanes": len(out["per_seed_top_k"]), "feeds": cfg.n_feeds,
             "events": out["events"], "build_s": b_s, "run_s": run_s,
+            "thin_launches": thin,
             "events_per_s": out["events"] / run_s, "stages_s": stages,
             "mean_posts": out["mean_posts"],
             "mean_top1": out["mean_time_in_top_k"],

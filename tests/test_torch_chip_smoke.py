@@ -196,6 +196,7 @@ def test_phase7d_config2_hawkes_gate():
     res = chip_smoke.star_config2("cpu", kw=SMALL_FULL[2],
                                   seeds=np.arange(2))
     assert set(res["stages_s"]) == {"streams", "fires", "metrics"}
+    assert res["thin_launches"] == 0    # the plain loop on the CPU
     assert res["stages_s"]["streams"] > 0 and res["stages_s"]["fires"] > 0
     assert abs(res["wall_mean"] - res["wall_closed_form"]) < res["wall_4se"]
     # the closed form: stationary mean less the start-up transient

@@ -10,7 +10,9 @@ Tolerance for the event kernel: none.  The kernel is built without fast
 math and without fused multiply-adds and does each operation in the
 plain version's order, so ``srcs``, ``n_events``, health words, the
 whole carry and ``times`` are held bit-identical on every lane of every
-mix.  The Hawkes pass (``csrc/hawkes_pass.cu``) has its tolerance where
+mix.  The same holds for the Hawkes thinning kernel
+(``csrc/hawkes_thin.cu``): its streams are the plain loop's, bit for
+bit.  The Hawkes pass (``csrc/hawkes_pass.cu``) has its tolerance where
 its tests are, below."""
 
 import dataclasses
@@ -357,29 +359,90 @@ def test_star_hawkes_batch_matches_the_reference_on_card(card):
                  .abs().max()) <= 1e-4
 
 
-def test_hawkes_stream_graph_equals_eager_on_card(card, monkeypatch):
-    """The thinning loop's blocks replayed as one CUDA graph give the
-    streams of the same loop run eagerly, bit for bit, and the graph is
-    captured once."""
-    from redqueen_tpu_torch.ops import prng, streams
+def _thin_case(case, dev):
+    """``(key, l0, alpha, beta, t0, T, cap)`` of a thinning case."""
+    from redqueen_tpu_torch.ops import prng
 
-    N = 5000
-    key = prng.PRNGKey(torch.arange(N, device=card) + 2 ** 31 + 3)
     g = torch.Generator().manual_seed(0)
-    l0 = (0.2 + torch.rand(N, generator=g)).to(card)
-    beta = (1.0 + 2.0 * torch.rand(N, generator=g)).to(card)
-    alpha = beta * (0.2 + 0.6 * torch.rand(N, generator=g)).to(card)
-    captures = []
-    real = streams._graphed
-    monkeypatch.setattr(streams, "_graphed", lambda *a: captures.append(1)
-                        or real(*a))
-    graphed = streams.hawkes_stream(key, l0, alpha, beta, 0.0, 50.0, 256)
-    monkeypatch.setattr(streams, "_graphed", lambda block, state: (
-        block, state))
-    eager = streams.hawkes_stream(key, l0, alpha, beta, 0.0, 50.0, 256)
-    assert captures == [1] and int(eager.n.sum()) > 50 * N
-    for a, b in zip(graphed, eager):
-        assert torch.equal(a, b)
+    if case == "config 2 at 4 lanes":
+        N = 4 * 1000
+        l0, alpha, beta = (torch.full((N,), x) for x in (0.5, 0.8, 2.0))
+        t0, T, cap = 0.0, 100.0, 1024
+    else:
+        N = 5000
+        l0 = 0.2 + torch.rand(N, generator=g)
+        beta = 1.0 + 2.0 * torch.rand(N, generator=g)
+        alpha = beta * (0.2 + 0.6 * torch.rand(N, generator=g))
+        t0, T, cap = 0.0, 50.0, 256
+        if case == "a small cap":
+            cap = 8
+        elif case == "t0 > 0, some l0 = 0":
+            l0[::7] = 0.0
+            t0, T = 3.7, 20.3
+    key = prng.fold_in(prng.PRNGKey(torch.tensor(2 ** 31 + 3)),
+                       torch.arange(N))
+    return (key.to(dev), l0.to(dev), alpha.to(dev), beta.to(dev), t0, T,
+            cap)
+
+
+@pytest.mark.parametrize("case", ["config 2 at 4 lanes", "random l0/α/β",
+                                  "a small cap", "t0 > 0, some l0 = 0"])
+def test_hawkes_stream_kernel_equals_plain_on_card(card, case):
+    """The thinning kernel's streams are the plain loop's on the card, bit
+    for bit, from one launch a stream; its exact step count is the one
+    the loop rounds up to a multiple of ``PROBE_EVERY``."""
+    from redqueen_tpu_torch.ops import streams
+    from redqueen_tpu_torch.ops.sampling import PROBE_EVERY
+    from redqueen_tpu_torch.runtime import telemetry
+
+    args = _thin_case(case, card)
+    kernels.reset_launch_counts()
+    steps = []
+    try:
+        telemetry.configure(enabled=True, reset=True)
+        got = streams.hawkes_stream(*args)
+        steps.append(telemetry.get().counters["star.hawkes.steps"])
+        assert kernels.LAUNCHES["hawkes_thin"] == 1
+        telemetry.configure(enabled=True, reset=True)
+        want = streams._hawkes_stream_plain(*args)
+        steps.append(telemetry.get().counters["star.hawkes.steps"])
+        assert kernels.LAUNCHES["hawkes_thin"] == 1
+    finally:
+        telemetry.configure(enabled=False, reset=True)
+    assert steps[1] == PROBE_EVERY * -(-steps[0] // PROBE_EVERY) > 0
+    assert torch.equal(got.times.view(torch.int32),
+                       want.times.view(torch.int32))
+    assert torch.equal(got.n, want.n)
+    assert torch.equal(got.truncated, want.truncated)
+    n = want.n.cpu()
+    assert int(n.sum()) > 5 * len(n)
+    if case == "a small cap":
+        assert float(want.truncated.float().mean()) > 0.5
+    if case == "t0 > 0, some l0 = 0":
+        assert int(n[::7].sum()) == 0 and float(want.times.min()) > 3.7
+
+
+def test_a_config2_star_batch_launches_the_thinning_kernel_once(card):
+    """A star batch of config 2 runs its 4 x 1,000 Hawkes walls through one
+    launch of the thinning kernel, and telemetry counts it and its steps
+    (read from the card) with no host read of the stream's own."""
+    from redqueen_tpu_torch.presets import config2_hawkes
+    from redqueen_tpu_torch.runtime import telemetry
+
+    _, cfg, wall, ctrl = config2_hawkes(end_time=30.0, device=card)
+    kernels.reset_launch_counts()
+    telemetry.configure(enabled=True, reset=True)
+    try:
+        rb = rt.simulate_star_batch(cfg, *rt.broadcast_star(wall, ctrl, 4),
+                                    np.arange(4) + 9, device=card)
+        counters = dict(telemetry.get().counters)
+    finally:
+        telemetry.configure(enabled=False, reset=True)
+    assert kernels.LAUNCHES["hawkes_thin"] == 1
+    assert counters["star.hawkes.kernel"] == 1
+    assert counters["star.hawkes.host_reads"] == 0
+    assert 0 < counters["star.hawkes.steps"] < 10_000
+    assert int(rb.wall_n.min()) > 0
 
 
 @pytest.mark.parametrize("engine", ["fused", "scan"])
