@@ -25,12 +25,10 @@ Phases, each reported on its own line:
    broadcaster and 10 Poisson walls of rate 1, T=100, q=1), with the
    kernel's launch count taken around that run and a best-of-3 timing;
    then the kernel and its plain version replay the best run's inputs,
-   each launch timed, and are held against each other on every lane.
-   The kernel is timed twice: on the device alone (the row's ``ms``),
-   and with the wrapper's host work inside the events (the row's
-   ``ms_with_host``).  The headline's seeds give 12,300,664
-   events, a mean time-in-top-1 of 80.3196 and 230.30 posts per lane;
-   any other count fails.
+   each launch timed for the kernel table, and are held against each
+   other on every lane.  The headline's seeds give 12,300,664 events, a
+   mean time-in-top-1 of 80.3196 and 230.30 posts per lane; any other
+   count fails.
 
 6. the scan engine (``engine="scan"``, PyTorch ops, no hand kernel) on
    the card: (a) the headline at full width, its Poisson walls within
@@ -106,8 +104,8 @@ Phases, each reported on its own line:
    health zero, the EM curve not falling by more than 1e-3 relative, the
    responsibilities summing to the event count within 1e-4 on one pass,
    the kernel against its plain version on the first 8 chunks, and the
-   pass timed on the device (10 passes) and split by the profiler into
-   its three phases.
+   pass timed for the kernel table (10 passes) and split by the profiler
+   into its three phases.
 
 10. the serving path (``redqueen_tpu_torch.serving``, PyTorch operations
    on the card; the ``hawkes_pass`` kernel through the streaming
@@ -195,12 +193,10 @@ Phases, each reported on its own line:
    cell's shape (256 lanes x 1,000 config-2 feeds = 256,000 sources, T =
    100, rows of 1,024): its streams bit for bit those of the plain loop
    ``streams._hawkes_stream_plain`` on the same keys (``times`` as
-   int32, ``n``, ``truncated``), after an untimed round 10 launches
-   timed on the device alone and 10 through ``streams.hawkes_stream``
-   with the host's work, the
-   plain loop timed once, the bound (``smoke/hawkes_thin.py:bound``) and
-   the launches counted (one a stream; phase 7 (d)'s star batch is one
-   launch, counted from zero).
+   int32, ``n``, ``truncated``), the launch (10 times) and the plain
+   loop timed for the kernel table, the bound
+   (``smoke/hawkes_thin.py:bound``) and the launches counted (one a
+   stream; phase 7 (d)'s star batch is one launch, counted from zero).
 
 Every event-kernel comparison holds every lane bit-identical: ``srcs``,
 ``n_events``, health, counters and ``times``.
@@ -214,14 +210,33 @@ them in order.
 Any failed check exits non-zero.  The last three lines are JSON: every
 measurement of the run (``{"measurements": {...}}``), the kernel table
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.  Without
-CUDA the script exits with code 2 and prints no result."""
+CUDA the script exits with code 2 and prints no result.
+
+The kernel table has one row a hand kernel, each written by
+``smoke.common.kernel_row`` with the same fields.  Every kernel is timed
+by ``smoke.common.time_launches``: one untimed call, then each timed
+call twice with CUDA events, on the device alone (the stream sleeps
+while the host prepares the launch; the run fails if the host took
+longer than the sleep) and with the host's work inside the events.
+``ms`` and ``ms_with_host`` are the medians of those two lists;
+``plain_ms`` is the median of the plain version's milliseconds with the
+host's work on the same work, or at ``plain_shape`` where that is
+another (``hawkes_pass``'s plain version would take hours on the
+corpus); ``bound_ms`` is ``utils.roofline.bound`` of the work at the
+shape of ``ms``: for the event kernel the benchmark's own events-only
+count (``portbench.roofline.work``) of the timed replay over its
+launches, for ``hawkes_pass`` ``smoke/learn.py:corpus_bound``, for
+``hawkes_thin`` ``smoke/hawkes_thin.py:bound``."""
 
 import json
 import sys
 import time
 
-import numpy as np
 import torch
+
+from portbench import roofline as bench_roofline
+from redqueen_tpu_torch.utils import roofline
+from redqueen_tpu_torch.smoke.common import kernel_row
 
 # The phases, and the names the tests reach as ``chip_smoke.<name>``.
 from redqueen_tpu_torch.smoke.fused import (
@@ -321,7 +336,58 @@ from redqueen_tpu_torch.smoke.cluster import \
     card_against_cpu as cluster_card_against_cpu
 from redqueen_tpu_torch.smoke.runtime import phase_runtime
 from redqueen_tpu_torch.smoke.mesh import phase_mesh
-from redqueen_tpu_torch.smoke.hawkes_thin import phase_hawkes_thin, thin_row
+from redqueen_tpu_torch.smoke.hawkes_thin import phase_hawkes_thin
+
+
+def event_kernel_bound(hl):
+    """The event kernel's bound per launch in phase 5's timed replay: the
+    benchmark's own count of the work (``portbench.roofline.work``,
+    events only, as ``simulate.roofline_pct`` reads it) from the replay's
+    events per source, at ``utils.roofline``'s rates, over its launches."""
+    w = bench_roofline.work(hl["kind_is_opt"], hl["adj"],
+                            hl["source_events"], hl["B"])
+    b = roofline.bound(w["bytes"], w["int_ops"] + w["float_ops"],
+                       w["int_ops"])
+    launches = len(hl["kernel_ms_per_launch"])
+    return {"bound_ms": float(b["bound_ms"]) / launches,
+            "bound_by": b["bound_by"]}
+
+
+def kernel_rows(result):
+    """The kernel table (the ``kernels`` line): one row a hand kernel,
+    each by ``smoke.common.kernel_row``, from the phases' results."""
+    hl, ln, ph14 = result["headline"], result["learn"], result["hawkes_thin"]
+    ph12, ph13 = result["runtime"]["launches"], result["mesh"]["launches"]
+    c = ln["corpus"]
+    small = ln["parity"]["d5_stats"]
+    return [
+        kernel_row(
+            "event_kernel", "redqueen_tpu/ops/pallas_engine.py:311",
+            hl["kernel_ms_per_launch"], hl["kernel_with_host_ms_per_launch"],
+            hl["plain_ms_per_launch"], event_kernel_bound(hl),
+            hl["parity"]["max_abs_err"],
+            {"5": hl["launches"]["event_kernel"],
+             "12": ph12["event_kernel"], "13": ph13["event_kernel"]}),
+        kernel_row(
+            "hawkes_pass",
+            "redqueen_tpu/learn/loglik.py:125 (lax.scan; no Pallas kernel)",
+            c["kernel_ms"], c["kernel_with_host_ms"], [small["plain_ms"]],
+            c["bound"],
+            max([r["max_abs_err"] for r in ln["parity"].values()]
+                + [c["cross"]["max_abs_err"]]),
+            {"9": ln["launches"], "10": result["serving"]["launches"],
+             "11": result["cluster"]["launches"],
+             "12": ph12["hawkes_pass"], "13": ph13["hawkes_pass"]},
+            plain_shape=small["shape"],
+            phase_share=c["phases"] and c["phases"]["share"]),
+        kernel_row(
+            "hawkes_thin",
+            "redqueen_tpu/ops/streams.py:74 (lax.scan; no Pallas kernel)",
+            ph14["ms_device"], ph14["ms_with_host"], ph14["plain_ms"],
+            ph14["bound"], ph14["max_abs_err"],
+            {"7": result["presets"]["config2"]["thin_launches"],
+             "14": ph14["launches"]}),
+    ]
 
 
 def main():
@@ -341,55 +407,17 @@ def main():
     result["presets"] = phase_presets(
         dev, (hl["mean_top1"], hl["std_top1"], hl["B"]))
     result["config5"] = phase_config5(dev)
-    result["learn"] = ln = phase_learn(dev)
-    result["serving"] = sv = phase_serving(dev)
-    result["cluster"] = cl = phase_cluster(dev)
-    result["runtime"] = ph12 = phase_runtime(dev)
-    print(json.dumps({"runtime": ph12}))
-    result["mesh"] = ph13 = phase_mesh(dev)
-    result["hawkes_thin"] = ph14 = phase_hawkes_thin(dev)
-    n_launch = len(hl["kernel_ms_per_launch"])
-    row = {
-        "name": "event_kernel", "route": "cuda",
-        "source": "redqueen_tpu_torch/csrc/event_kernel.cu",
-        "replaces": "redqueen_tpu/ops/pallas_engine.py:311",
-        "launches": (hl["launches"]["event_kernel"]
-                     + ph12["launches"]["event_kernel"]
-                     + ph13["launches"]["event_kernel"]),
-        "launches_by_phase": {"5": hl["launches"]["event_kernel"],
-                              "12": ph12["launches"]["event_kernel"],
-                              "13": ph13["launches"]["event_kernel"]},
-        "max_abs_err": hl["parity"]["max_abs_err"],
-        "ms": hl["kernel_ms_mean"],
-        "ms_with_host": hl["kernel_with_host_ms_mean"],
-        "plain_ms": hl["plain_ms_mean"],
-        "bound_ms": hl["bound"]["bound_ms"] / n_launch,
-        "bound_by": hl["bound"]["bound_by"], "library_ms": None,
-    }
-    c = ln["corpus"]
-    small = ln["parity"]["d5_stats"]
-    hawkes_row = {
-        "name": "hawkes_pass", "route": "cuda",
-        "source": "redqueen_tpu_torch/csrc/hawkes_pass.cu",
-        "replaces": "redqueen_tpu/learn/loglik.py:125 (lax.scan; no Pallas "
-                    "kernel)",
-        "launches": (ln["launches"] + sv["launches"] + cl["launches"]
-                     + ph12["launches"]["hawkes_pass"]
-                     + ph13["launches"]["hawkes_pass"]),
-        "max_abs_err": max([r["max_abs_err"]
-                            for r in ln["parity"].values()]
-                           + [c["cross"]["max_abs_err"]]),
-        "ms": float(np.mean(c["kernel_ms"])),
-        "phase_share": c["phases"] and c["phases"]["share"],
-        "plain_ms": small["plain_ms"],
-        "bound_ms": c["bound"]["bound_ms"],
-        "bound_by": c["bound"]["bound_by"], "library_ms": None,
-    }
+    result["learn"] = phase_learn(dev)
+    result["serving"] = phase_serving(dev)
+    result["cluster"] = phase_cluster(dev)
+    result["runtime"] = phase_runtime(dev)
+    print(json.dumps({"runtime": result["runtime"]}))
+    result["mesh"] = phase_mesh(dev)
+    result["hawkes_thin"] = phase_hawkes_thin(dev)
     result["total_s"] = time.perf_counter() - t_start
     print(f"total {result['total_s']:.1f} s")
     print(json.dumps({"measurements": result}))
-    thin = thin_row(ph14, result["presets"]["config2"]["thin_launches"])
-    print(json.dumps({"kernels": [row, hawkes_row, thin]}))
+    print(json.dumps({"kernels": kernel_rows(result)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,9 @@ Each ``csrc/*.cu`` file is compiled with ``nvcc`` into a shared library
 with a plain C interface on first use (one ``nvcc`` per source, all
 started together), cached by the content of the source, the headers and
 the flags under ``redqueen_tpu_torch/_build/``, and loaded with
-``ctypes``.  Three kernels: the event kernel of the fused engine
+``ctypes`` by one loader, :func:`_library`, which declares each library's
+entry points and checks its compile-time bounds from one table,
+:data:`_API`.  Three kernels: the event kernel of the fused engine
 (``csrc/event_kernel.cu``), the Hawkes event pass of the learn path
 (``csrc/hawkes_pass.cu``) and the Hawkes thinning of the star engine's
 streams (``csrc/hawkes_thin.cu``).
@@ -126,90 +128,85 @@ def build() -> Tuple[Dict[str, Path], float]:
     return libs, time.perf_counter() - t0
 
 
-def _load(stem: str) -> ctypes.CDLL:
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+
+#: What each ``csrc/<stem>.cu`` library exports, by stem: its C entry
+#: points as ``name: (argtypes, restype)``, its ``const char *(int)``
+#: that names a CUDA error code, and its ``int (void)`` compile-time
+#: bounds, each with the value it must share with this module, as
+#: ``entry: (name here, value)``.
+_API = {
+    "event_kernel": {
+        "entries": {
+            "rq_event_kernel_launch": (
+                [_VP] * 5                     # params, carry in/out, log
+                + [_INT] * 6                  # B, S, F, Kr, Kp, steps
+                + [ctypes.c_float, ctypes.c_uint, _INT]  # end, mask, flags
+                + [_VP], _INT),               # stream
+            "rq_threefry_launch": ([_VP] * 6 + [_INT, _VP], _INT),
+            "rq_event_kernel_geometry": (
+                [_INT, _INT, ctypes.c_uint] + [ctypes.POINTER(_INT)] * 3,
+                None),
+        },
+        "error": "rq_error_string",
+        "bounds": {"rq_max_sources": ("MAX_S", MAX_S)},
+    },
+    "hawkes_pass": {
+        "entries": {
+            "rq_hawkes_pass_launch": ([_VP] * 13 + [_INT] * 4 + [_VP] * 2,
+                                      _INT),
+            "rq_hawkes_carry_launch": ([_VP] * 6 + [_INT] * 5 + [_VP] * 2,
+                                       _INT),
+            "rq_hawkes_segments": ([_INT], _INT),
+            "rq_hawkes_max_segments": ([_INT], _INT),
+            "rq_hawkes_workspace_floats": ([_INT] * 3, ctypes.c_longlong),
+        },
+        "error": "rq_hawkes_error_string",
+        "bounds": {"rq_hawkes_max_dims": ("HAWKES_MAX_D", HAWKES_MAX_D)},
+    },
+    "hawkes_thin": {
+        "entries": {
+            "rq_hawkes_thin_launch": (
+                [_VP] * 4 + [_INT, _INT, ctypes.c_float, ctypes.c_float,
+                             _INT] + [_VP] * 5, _INT),
+        },
+        "error": "rq_hawkes_thin_error_string",
+        "bounds": {},
+    },
+}
+
+
+def _library(stem: str) -> ctypes.CDLL:
+    """``csrc/<stem>.cu``'s library: built on first use (:func:`build`),
+    loaded, its entry points declared from :data:`_API` and its
+    compile-time bounds checked against this module's; cached."""
     lib = _LIBS.get(stem)
-    if lib is None:
-        paths, _ = build()
-        lib = ctypes.CDLL(str(paths[stem]))
-    return lib
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _LIBS.get("event_kernel")
     if lib is not None:
         return lib
-    lib = _load("event_kernel")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rq_max_sources.argtypes = []
-    lib.rq_max_sources.restype = ci
-    lib.rq_error_string.argtypes = [ci]
-    lib.rq_error_string.restype = ctypes.c_char_p
-    lib.rq_event_kernel_launch.argtypes = [
-        vp, vp, vp, vp, vp,                     # params, carry in/out, log
-        ci, ci, ci, ci, ci, ci,                 # B, S, F, Kr, Kp, steps
-        ctypes.c_float, ctypes.c_uint, ci,      # end_time, opt_mask, flags
-        vp]                                     # stream
-    lib.rq_event_kernel_launch.restype = ci
-    lib.rq_threefry_launch.argtypes = [vp] * 6 + [ci, vp]
-    lib.rq_threefry_launch.restype = ci
-    lib.rq_event_kernel_geometry.argtypes = [ci, ci, ctypes.c_uint] + [
-        ctypes.POINTER(ci)] * 3
-    lib.rq_event_kernel_geometry.restype = None
-    if lib.rq_max_sources() != MAX_S:
-        raise RuntimeError(
-            f"kernel library bound RQ_MAX_S={lib.rq_max_sources()} "
-            f"disagrees with ops.kernels MAX_S={MAX_S}")
-    _LIBS["event_kernel"] = lib
+    api = _API[stem]
+    lib = ctypes.CDLL(str(build()[0][stem]))
+    entries = {**api["entries"], api["error"]: ([_INT], ctypes.c_char_p),
+               **{name: ([], _INT) for name in api["bounds"]}}
+    for name, (argtypes, restype) in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    for name, (here, want) in api["bounds"].items():
+        got = getattr(lib, name)()
+        if got != want:
+            raise RuntimeError(
+                f"kernel library bound {name}()={got} disagrees with "
+                f"ops.kernels {here}={want}")
+    _LIBS[stem] = lib
     return lib
 
 
-def _hawkes_lib() -> ctypes.CDLL:
-    lib = _LIBS.get("hawkes_pass")
-    if lib is not None:
-        return lib
-    lib = _load("hawkes_pass")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rq_hawkes_max_dims.argtypes = []
-    lib.rq_hawkes_max_dims.restype = ci
-    lib.rq_hawkes_error_string.argtypes = [ci]
-    lib.rq_hawkes_error_string.restype = ctypes.c_char_p
-    lib.rq_hawkes_pass_launch.argtypes = [vp] * 13 + [ci] * 4 + [vp, vp]
-    lib.rq_hawkes_pass_launch.restype = ci
-    lib.rq_hawkes_carry_launch.argtypes = [vp] * 6 + [ci] * 5 + [vp, vp]
-    lib.rq_hawkes_carry_launch.restype = ci
-    for fn in (lib.rq_hawkes_segments, lib.rq_hawkes_max_segments):
-        fn.argtypes = [ci]
-        fn.restype = ci
-    lib.rq_hawkes_workspace_floats.argtypes = [ci, ci, ci]
-    lib.rq_hawkes_workspace_floats.restype = ctypes.c_longlong
-    if lib.rq_hawkes_max_dims() != HAWKES_MAX_D:
-        raise RuntimeError(
-            f"kernel library bound RQ_HAWKES_MAX_D="
-            f"{lib.rq_hawkes_max_dims()} disagrees with ops.kernels "
-            f"HAWKES_MAX_D={HAWKES_MAX_D}")
-    _LIBS["hawkes_pass"] = lib
-    return lib
-
-
-def _thin_lib() -> ctypes.CDLL:
-    lib = _LIBS.get("hawkes_thin")
-    if lib is not None:
-        return lib
-    lib = _load("hawkes_thin")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rq_hawkes_thin_error_string.argtypes = [ci]
-    lib.rq_hawkes_thin_error_string.restype = ctypes.c_char_p
-    lib.rq_hawkes_thin_launch.argtypes = (
-        [vp] * 4 + [ci, ci, ctypes.c_float, ctypes.c_float, ci] + [vp] * 5)
-    lib.rq_hawkes_thin_launch.restype = ci
-    _LIBS["hawkes_thin"] = lib
-    return lib
-
-
-def _check(rc: int, what: str) -> None:
+def _raise_on(stem: str, rc: int, what: str) -> None:
+    """Raise for a nonzero return ``rc`` of ``stem``'s library, with the
+    library's name for the CUDA error."""
     if rc != 0:
-        msg = _lib().rq_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+        msg = getattr(_library(stem), _API[stem]["error"])(rc)
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} "
+                           f"({msg.decode(errors='replace')})")
 
 
 def check_kernel_shape(spec: KernelSpec) -> None:
@@ -249,8 +246,8 @@ def geometry(spec: KernelSpec, B: int) -> Geometry:
     Each lane keeps its per-source constants, state and react table in
     shared memory."""
     vals = [ctypes.c_int() for _ in range(3)]
-    _lib().rq_event_kernel_geometry(B, spec.S, _opt_mask(spec),
-                                    *(ctypes.byref(v) for v in vals))
+    _library("event_kernel").rq_event_kernel_geometry(
+        B, spec.S, _opt_mask(spec), *(ctypes.byref(v) for v in vals))
     return Geometry(*(v.value for v in vals))
 
 
@@ -306,7 +303,7 @@ def launch_event_kernel(spec: KernelSpec, params: Dict[str, torch.Tensor],
         _require(params[nm], nm, *want[nm], dev)
     for nm in CARRY_NAMES:
         _require(carry[nm], nm, *want[nm], dev)
-    lib = _lib()
+    lib = _library("event_kernel")
     steps = spec.k * spec.capacity
     out = {nm: torch.empty_like(carry[nm]) for nm in CARRY_NAMES}
     times = torch.empty((steps, B), dtype=f32, device=dev)
@@ -323,7 +320,7 @@ def launch_event_kernel(spec: KernelSpec, params: Dict[str, torch.Tensor],
         ctypes.cast(co_arr, ctypes.c_void_p),
         times.data_ptr(), srcs.data_ptr(), B, S, F, Kr, Kp, steps,
         float(spec.end_time), _opt_mask(spec), _flags(spec), stream)
-    _check(rc, "event kernel")
+    _raise_on("event_kernel", rc, "event kernel")
     LAUNCHES["event_kernel"] += 1
     return out, times, srcs
 
@@ -337,13 +334,13 @@ def threefry_on_device(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
         raise ValueError(f"threefry_on_device takes CUDA tensors, got {dev}")
     for nm, t in (("k0", k0), ("k1", k1), ("x0", x0), ("x1", x1)):
         _require(t, nm, torch.int32, tuple(k0.shape), dev)
-    lib = _lib()
+    lib = _library("event_kernel")
     y0, y1 = torch.empty_like(k0), torch.empty_like(k0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.rq_threefry_launch(k0.data_ptr(), k1.data_ptr(), x0.data_ptr(),
                                 x1.data_ptr(), y0.data_ptr(), y1.data_ptr(),
                                 k0.numel(), stream)
-    _check(rc, "threefry")
+    _raise_on("event_kernel", rc, "threefry")
     LAUNCHES["threefry"] += 1
     return y0, y1
 
@@ -352,7 +349,7 @@ def hawkes_segments(D: int) -> int:
     """The segments a chunk (warps a block) the Hawkes pass uses at ``D``
     dimensions, as the kernel's library chooses them (building it on
     first use)."""
-    return _hawkes_lib().rq_hawkes_segments(D)
+    return _library("hawkes_pass").rq_hawkes_segments(D)
 
 
 def _hawkes_inputs(fn: str, named, by: torch.Tensor):
@@ -381,12 +378,6 @@ def _hawkes_inputs(fn: str, named, by: torch.Tensor):
     return C, K, D
 
 
-def _hawkes_check(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.rq_hawkes_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
-
-
 def launch_hawkes_pass(dt: torch.Tensor, dims: torch.Tensor,
                        mask: torch.Tensor, tail: torch.Tensor,
                        mu: torch.Tensor, alpha: torch.Tensor,
@@ -403,7 +394,7 @@ def launch_hawkes_pass(dt: torch.Tensor, dims: torch.Tensor,
     C, K, D = _hawkes_inputs("launch_hawkes_pass", (
         ("dt", dt), ("dims", dims), ("mask", mask), ("tail", tail),
         ("mu", mu), ("alpha", alpha), ("beta", beta)), mu)
-    lib = _hawkes_lib()
+    lib = _library("hawkes_pass")
     dev, f32 = dt.device, torch.float32
     W = lib.rq_hawkes_segments(D)
     work = torch.empty(lib.rq_hawkes_workspace_floats(C, W, D), dtype=f32,
@@ -421,7 +412,7 @@ def launch_hawkes_pass(dt: torch.Tensor, dims: torch.Tensor,
         a.data_ptr(), b.data_ptr(), w.data_ptr(), e.data_ptr(),
         health.data_ptr(), C, K, D, 1 if grad else 0, work.data_ptr(),
         stream)
-    _hawkes_check(lib, rc, "hawkes_pass")
+    _raise_on("hawkes_pass", rc, "hawkes_pass")
     LAUNCHES["hawkes_pass"] += 1
     return ll, a, b, w, e, health
 
@@ -435,7 +426,7 @@ def launch_hawkes_carry(dt: torch.Tensor, dims: torch.Tensor,
     in grad mode), as ``learn.loglik.hawkes_carry_plain`` gives them."""
     C, K, D = _hawkes_inputs("launch_hawkes_carry", (
         ("dt", dt), ("dims", dims), ("mask", mask), ("beta", beta)), beta)
-    lib = _hawkes_lib()
+    lib = _library("hawkes_pass")
     W = lib.rq_hawkes_segments(D) if segments is None else int(segments)
     top = lib.rq_hawkes_max_segments(D)
     if not 1 <= W <= top:
@@ -451,7 +442,7 @@ def launch_hawkes_carry(dt: torch.Tensor, dims: torch.Tensor,
         dt.data_ptr(), dims.data_ptr(), mask.data_ptr(), beta.data_ptr(),
         r_in.data_ptr(), q_in.data_ptr(), C, K, D, W, 1 if grad else 0,
         work.data_ptr(), stream)
-    _hawkes_check(lib, rc, "hawkes_carry")
+    _raise_on("hawkes_pass", rc, "hawkes_carry")
     LAUNCHES["hawkes_carry"] += 1
     return r_in, q_in
 
@@ -478,7 +469,7 @@ def launch_hawkes_thin(key: torch.Tensor, l0: torch.Tensor,
         raise ValueError(f"launch_hawkes_thin takes CUDA tensors, got {dev}")
     if cap < 0:
         raise ValueError(f"launch_hawkes_thin takes cap >= 0, got {cap}")
-    lib = _thin_lib()
+    lib = _library("hawkes_thin")
     times = torch.full((N, cap), float("inf"), dtype=torch.float32,
                        device=dev)
     n = torch.empty(N, dtype=torch.int32, device=dev)
@@ -489,9 +480,6 @@ def launch_hawkes_thin(key: torch.Tensor, l0: torch.Tensor,
         key.data_ptr(), l0.data_ptr(), alpha.data_ptr(), beta.data_ptr(), N,
         cap, float(t0), float(T), DEFAULT_MAX_PROPOSALS, times.data_ptr(),
         n.data_ptr(), truncated.data_ptr(), steps.data_ptr(), stream)
-    if rc != 0:
-        msg = lib.rq_hawkes_thin_error_string(rc).decode(errors="replace")
-        raise RuntimeError(
-            f"hawkes_thin launch failed: CUDA error {rc} ({msg})")
+    _raise_on("hawkes_thin", rc, "hawkes_thin")
     LAUNCHES["hawkes_thin"] += 1
     return times, n, truncated, steps

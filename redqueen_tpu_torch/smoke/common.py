@@ -1,12 +1,13 @@
 """Shared helpers of the smoke run's phases: the check that ends the
-run and the CUDA-event timers.  The card's rates that the bounds divide
-by are ``utils.roofline``'s."""
+run, the one timer of a hand kernel (:func:`time_launches`) and the one
+builder of a row of the kernel table (:func:`kernel_row`).  The card's
+rates that the bounds divide by are ``utils.roofline``'s."""
 
+import statistics
 import sys
 import time
 
 import torch
-
 
 
 def fail(msg):
@@ -19,52 +20,79 @@ def check(ok, msg):
         fail(msg)
 
 
-def timed(launch_fn, ms):
-    """``launch_fn`` with a CUDA-event pair around each call, appending
-    each call's milliseconds to ``ms``.  The card idles while the host
-    prepares the launch, so the time includes the wrapper's host work (the
-    kernel row's ``ms_with_host``, and the right measure for the plain
-    version, whose many small operations the host issues one by one)."""
-    def run(spec, params, carry):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+# Cycles the card sleeps before a call timed on the device alone: about
+# 10 ms, longer than any wrapper's host work once its memory comes from
+# the allocator's cache.
+SLEEP_CYCLES = 20_000_000
+
+
+def time_launches(fn, *args, reps=1, device_alone=True, **kwargs):
+    """``fn(*args, **kwargs)`` once untimed, then ``reps`` times timed
+    with CUDA events: ``(device_ms, with_host_ms, last output)``.
+
+    On the device alone, the stream first sleeps ``SLEEP_CYCLES`` and the
+    host prepares the launch meanwhile, so the work starts right after
+    the first event; the run fails if the host took longer than the
+    sleep.  With the host's work, the events are recorded right around
+    the call, so the card idles while the host prepares it.  With
+    ``device_alone=False`` only the second is taken (for a plain
+    version, whose many small operations the host issues one by one) and
+    ``device_ms`` is empty."""
+    def events(n):
+        return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    device_ms, host_ms = [], []
+    for _ in range(reps):
+        if device_alone:
+            out = None  # the allocator reuses the last output's memory
+            z, a, b = events(3)
+            z.record()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            a.record()
+            h0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            took = (time.perf_counter() - h0) * 1e3
+            b.record()
+            torch.cuda.synchronize()
+            check(took < z.elapsed_time(a),
+                  f"the host took {took:.3f} ms to launch, longer than the "
+                  f"{z.elapsed_time(a):.3f} ms sleep")
+            device_ms.append(a.elapsed_time(b))
+        out = None
+        a, b = events(2)
         a.record()
-        out = launch_fn(spec, params, carry)
+        out = fn(*args, **kwargs)
         b.record()
         torch.cuda.synchronize()
-        ms.append(a.elapsed_time(b))
-        return out
-    return run
+        host_ms.append(a.elapsed_time(b))
+    return device_ms, host_ms, out
 
 
-# Cycles the card sleeps before a launch timed on the device alone: about
-# 2 ms, far longer than the wrapper's host work.
-SLEEP_CYCLES = 4_000_000
-
-
-def timed_on_device(launch_fn, ms):
-    """``launch_fn`` with a CUDA-event pair around its kernel alone: the
-    stream first sleeps on the card, and the host prepares the launch
-    meanwhile, so the kernel starts right after the first event.  Fails
-    if the host took longer than the sleep."""
-    def run(spec, params, carry):
-        z = torch.cuda.Event(enable_timing=True)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        z.record()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        a.record()
-        h0 = time.perf_counter()
-        out = launch_fn(spec, params, carry)
-        host_ms = (time.perf_counter() - h0) * 1e3
-        b.record()
-        torch.cuda.synchronize()
-        check(host_ms < z.elapsed_time(a),
-              f"the host took {host_ms:.3f} ms to launch, longer than the "
-              f"{z.elapsed_time(a):.3f} ms sleep")
-        ms.append(a.elapsed_time(b))
-        return out
-    return run
+def kernel_row(name, replaces, device_ms, with_host_ms, plain_ms, bound,
+               max_abs_err, launches_by_phase, plain_shape=None,
+               phase_share=None):
+    """The kernel table's row of ``csrc/<name>.cu``: ``ms`` and
+    ``ms_with_host`` the medians of :func:`time_launches`' two lists,
+    ``plain_ms`` the median of the plain version's milliseconds with the
+    host's work, taken at ``plain_shape`` where that is not the shape of
+    ``ms`` (else null), ``bound`` (``utils.roofline.bound``'s
+    ``bound_ms`` and ``bound_by``) at the shape of ``ms``, the launches
+    of each phase, and the share of each of the kernel's phases where it
+    has more than one (else null)."""
+    return {
+        "name": name, "route": "cuda",
+        "source": f"redqueen_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+        "launches": sum(launches_by_phase.values()),
+        "launches_by_phase": dict(launches_by_phase),
+        "max_abs_err": max_abs_err,
+        "ms": statistics.median(device_ms),
+        "ms_with_host": statistics.median(with_host_ms),
+        "plain_ms": statistics.median(plain_ms), "plain_shape": plain_shape,
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "phase_share": phase_share, "library_ms": None,
+    }
 
 
 def sync(dev):

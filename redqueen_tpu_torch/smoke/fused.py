@@ -19,43 +19,7 @@ from redqueen_tpu_torch.ops.threefry import (
     to_bits32,
 )
 from redqueen_tpu_torch.runtime import faultinject, numerics
-from redqueen_tpu_torch.utils import roofline
-from .common import (
-    check,
-    timed,
-    timed_on_device,
-)
-
-
-# Operations per unit of work of the event step (the reckoning of the
-# bound in PERF.md), as (integer, float), each counted as the instruction
-# sm_90 has for it.  A threefry-2x32 block: the parity word (one
-# three-input logic op), 2 initial key adds, 20 rounds of add, rotate (one
-# funnel shift) and xor, and 5 key injections of one add per word (the
-# round constant folds into a three-input add), all integer.  An Exp(1)
-# draw from its bits: an integer shift, then convert, scale, negate,
-# log1pf (about 20) and negate.
-OPS_DRAW = (1 + 2 + 20 * 3 + 5 * 2 + 1, 24)
-
-
-def ops_per_step(S):
-    """Every step, valid or absorbed: the argmin over S (compare, NaN test,
-    select) and the lane gating."""
-    return 8, 3 * S
-
-
-# The fired draw, then the Poisson resample, write-back and emit.
-OPS_EVENT = (OPS_DRAW[0], OPS_DRAW[1] + 12)
-
-
-def ops_react_scan(F):
-    """Per lane, Opt row and other source, once per launch (the sum does
-    not change during one): the rate sum over F feeds (two loads
-    multiplied, a division, a sqrt, a multiply and an add)."""
-    return 0, 5 * F + 2
-
-
-OPS_REACT_DRAW = (OPS_DRAW[0], OPS_DRAW[1] + 4)  # draw, candidate and min
+from .common import check, time_launches
 
 
 # The headline's batch size, at full width.
@@ -321,38 +285,6 @@ def run_headline(cfg, params, adj, opt, mc, seeds):
     return log, top1, posts, t1 - t0, time.perf_counter() - t1
 
 
-def bound_for(prep, carry, n_launches):
-    """Least time for the run's kernel work: bytes (each input read once,
-    each output written once) over HBM bandwidth, and operations (counted
-    from this run's events and react draws) over the issue rate, integer
-    ones over the INT32 rate, whichever is slower (``utils.roofline``)."""
-    spec, B = prep.spec, prep.B
-    S, F = spec.S, spec.F
-    in_bytes = sum(t.numel() * t.element_size()
-                   for t in list(prep.params.values())
-                   + list(prep.carry.values()))
-    carry_bytes = sum(t.numel() * t.element_size() for t in carry.values())
-    log_bytes = n_launches * spec.k * spec.capacity * B * 8
-    nbytes = in_bytes + carry_bytes + log_bytes
-    steps = n_launches * spec.k * spec.capacity * B
-    events = int(carry["nev"].sum())
-    draws = int(from_bits32(carry["ctr"]).sum())
-    react_draws = draws - events
-    pairs = n_launches * B * len(spec.opt_rows) * (S - 1)
-    int_ops, float_ops = (
-        sum(n * c[i] for n, c in ((steps, ops_per_step(S)),
-                                  (events, OPS_EVENT),
-                                  (pairs, ops_react_scan(F)),
-                                  (react_draws, OPS_REACT_DRAW)))
-        for i in (0, 1))
-    ops = int_ops + float_ops
-    return {"bytes": nbytes, "ops": ops, "int_ops": int_ops,
-            "float_ops": float_ops,
-            **roofline.bound(nbytes, ops, int_ops),
-            "events": events, "react_draws": react_draws,
-            "lane_steps": steps}
-
-
 def phase_headline(dev):
     B, T = HEADLINE_B, 100.0
     t0 = time.perf_counter()
@@ -401,19 +333,32 @@ def phase_headline(dev):
           f"headline's seeds give {HEADLINE_RESULT.get(B)}")
 
     # The kernel and its plain version replay the best run's inputs (the
-    # seeds of the timed runs), each launch timed, and are held against
-    # each other on every lane.
+    # seeds of the timed runs), each launch timed (``time_launches``), and
+    # are held against each other on every lane.
     prep = event_engine.prepare(cfg, params, adj, seeds + 10_000, 8)
     k_ms, kh_ms, p_ms = [], [], []
-    event_engine.drive(prep, timed(kernels.launch_event_kernel, kh_ms), mc)
+
+    def each_launch(launch_fn, device_ms, with_host_ms, device_alone):
+        def run(spec, params, carry):
+            d, h, out = time_launches(launch_fn, spec, params, carry,
+                                      device_alone=device_alone)
+            device_ms.extend(d)
+            with_host_ms.extend(h)
+            return out
+        return run
+
     kern = event_engine.drive(
-        prep, timed_on_device(kernels.launch_event_kernel, k_ms), mc)
-    plain = event_engine.drive(prep, timed(event_step.run_launch, p_ms), mc)
+        prep, each_launch(kernels.launch_event_kernel, k_ms, kh_ms, True),
+        mc)
+    plain = event_engine.drive(
+        prep, each_launch(event_step.run_launch, [], p_ms, False), mc)
     check(torch.equal(kern[0]["nev"], nev) and torch.equal(kern[2], srcs),
           "the timed kernel replay differs from the main path's log")
     parity = compare("phase 5 headline against the plain version", kern,
                      plain)
-    bound = bound_for(prep, kern[0], len(k_ms))
+    S = prep.spec.S
+    ks = kern[2][kern[2] >= 0].long()
+    source_events = torch.bincount(ks, minlength=S).tolist()
     geom = kernels.geometry(prep.spec, B)
 
     res = {
@@ -427,11 +372,11 @@ def phase_headline(dev):
         "std_top1": float(top1_h.std()),
         "posts_per_lane": float(posts_h.mean()),
         "wall_mean_events": float(wall.mean()), "wall_4se": float(4 * se),
-        "kernel_ms_per_launch": k_ms, "plain_ms_per_launch": p_ms,
-        "kernel_ms_mean": float(np.mean(k_ms)),
+        "kernel_ms_per_launch": k_ms,
         "kernel_with_host_ms_per_launch": kh_ms,
-        "kernel_with_host_ms_mean": float(np.mean(kh_ms)),
-        "plain_ms_mean": float(np.mean(p_ms)), "bound": bound,
+        "plain_ms_per_launch": p_ms, "source_events": source_events,
+        "kind_is_opt": [s == opt for s in range(S)],
+        "adj": (adj[0] != 0).tolist(),
         "parity": parity, "geometry": dataclasses.asdict(geom),
     }
     print(f"phase 5 headline: B={B} F=10 T={T} capacity={cfg.capacity} "
@@ -447,15 +392,8 @@ def phase_headline(dev):
     print(f"  launch geometry: G = 1 thread per lane, "
           f"{geom.lanes_per_block} lanes per block, {geom.blocks} blocks, "
           f"{geom.smem_bytes} bytes of shared memory per block")
-    print(f"  kernel ms per launch on the device {['%.4f' % x for x in k_ms]} "
-          f"(mean {res['kernel_ms_mean']:.4f}); with the wrapper's host work "
-          f"{['%.4f' % x for x in kh_ms]} (mean "
-          f"{res['kernel_with_host_ms_mean']:.4f}); plain version ms per "
-          f"launch "
-          f"{['%.1f' % x for x in p_ms]} (mean {res['plain_ms_mean']:.1f}); "
-          f"bound per launch {bound['bound_ms'] / len(k_ms):.4f} ms by "
-          f"{bound['bound_by']} ({bound['int_ops']:.4g} integer and "
-          f"{bound['float_ops']:.4g} float ops, {bound['bytes']:.4g} bytes "
-          f"for the run); no single PyTorch call computes this function, "
-          f"so library_ms is null")
+    print(f"  kernel ms per launch on the device {['%.4f' % x for x in k_ms]}"
+          f"; with the wrapper's host work {['%.4f' % x for x in kh_ms]}; "
+          f"plain version {['%.1f' % x for x in p_ms]}; events per source "
+          f"{source_events}")
     return res

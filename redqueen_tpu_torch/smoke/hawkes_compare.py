@@ -11,12 +11,11 @@ EM runs it) and the closed-loop world's shape (one chunk of 4,096 with
 one-launch ``rq_hawkes_pass_launch(13 pointers, C, K, D, grad, stream)``
 (no workspace); it is built with the package's nvcc flags into a
 temporary directory.  The two run in turns (old, new, new, old), each
-pass timed with CUDA events on the device alone (the stream sleeps while
-the host prepares the launch) and with the wrapper's host work; their
-outputs are compared with each other and with a float64 pass (every
-chunk at once, one event position a step, from float64 carries); the
-new kernel's phases are split by the profiler;
-the plain version is timed at the world's shape (at the corpus's it would
+pass timed by ``common.time_launches`` on the device alone and with the
+wrapper's host work; their outputs are compared with each other and with
+a float64 pass (every chunk at once, one event position a step, from
+float64 carries); the new kernel's phases are split by the profiler; the
+plain version is timed at the world's shape (at the corpus's it would
 take hours); and the bound (``smoke.learn.corpus_bound``) is computed
 from each stream.  Prints one JSON line, also written to ``--out``.
 Exits 2 without a card."""
@@ -28,14 +27,13 @@ import os
 import subprocess
 import sys
 import tempfile
-import time
 
 import numpy as np
 import torch
 
 from redqueen_tpu_torch.learn import loglik
 from redqueen_tpu_torch.ops import kernels
-from .common import check
+from .common import check, time_launches
 from .learn import (
     WORLD_ALPHA,
     WORLD_BETA,
@@ -48,9 +46,6 @@ from .learn import (
 )
 
 NAMES = ("ll", "a", "b", "w", "e")
-# Cycles the card sleeps before a pass timed on the device alone: about
-# 10 ms, longer than a wrapper's host work with its allocations.
-SLEEP_CYCLES = 20_000_000
 
 
 def build_old(src, out_dir):
@@ -85,36 +80,6 @@ def old_pass(lib):
         check(rc == 0, f"the earlier kernel's launch returned {rc}")
         return (*outs, health)
     return run
-
-
-def time_pass(fn, args, grad, reps):
-    """``reps`` timed passes after one warm-up: milliseconds on the device
-    alone and with the wrapper's host work, and the last outputs."""
-    out = fn(*args, grad=grad)
-    torch.cuda.synchronize()
-    dev_ms, host_ms = [], []
-    for _ in range(reps):
-        out = None  # the allocator reuses the last outputs' memory
-        z, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        z.record()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        a.record()
-        h0 = time.perf_counter()
-        out = fn(*args, grad=grad)
-        launch_ms = (time.perf_counter() - h0) * 1e3
-        b.record()
-        torch.cuda.synchronize()
-        check(launch_ms < z.elapsed_time(a),
-              f"the host took {launch_ms:.3f} ms to launch, longer than "
-              f"the sleep")
-        dev_ms.append(a.elapsed_time(b))
-        out = None
-        a.record()
-        out = fn(*args, grad=grad)
-        b.record()
-        torch.cuda.synchronize()
-        host_ms.append(a.elapsed_time(b))
-    return dev_ms, host_ms, out
 
 
 def float64_pass(dt, dims, mask, tail, mu, alpha, beta, grad=False):
@@ -238,7 +203,8 @@ def main(argv=None):
                 outs = {}
                 for who in ("old", "new", "new", "old"):
                     reps = old_reps if who == "old" else new_reps
-                    d, h, outs[who] = time_pass(fns[who], args, grad, reps)
+                    d, h, outs[who] = time_launches(fns[who], *args,
+                                                    grad=grad, reps=reps)
                     runs[who].append({"device_ms": d, "with_host_ms": h})
                 ref = float64_pass(*args, grad=grad)
                 row = {"events": ch.n_events, "chunks": list(ch.dt.shape),
@@ -256,12 +222,9 @@ def main(argv=None):
                                 "with_host_ms_mean": float(np.mean(h)),
                                 "turns": runs[who]}
                 if name == "world":
-                    loglik.hawkes_pass_plain(*args, grad=grad)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    loglik.hawkes_pass_plain(*args, grad=grad)
-                    torch.cuda.synchronize()
-                    row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+                    row["plain_ms"] = time_launches(
+                        loglik.hawkes_pass_plain, *args, grad=grad,
+                        device_alone=False)[1][0]
                 else:
                     row["plain_ms"] = None
                 row["speedup"] = (row["old"]["device_ms_mean"]

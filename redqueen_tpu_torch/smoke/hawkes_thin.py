@@ -5,16 +5,14 @@ to T = 100 into rows of 1,024.  Also runs alone:
 
     python -m redqueen_tpu_torch.smoke.hawkes_thin [--out hawkes_thin.json]
 
-After an untimed round, each of 10 streams is timed with CUDA events on
-the device alone (the stream sleeps while the host prepares the launch:
-the +inf fill and the kernel) and through ``streams.hawkes_stream`` with
-the host's work; the plain loop ``streams._hawkes_stream_plain`` runs
-once on the same keys, timed on the host's clock to its sync, and its
-streams must equal the kernel's bit for bit.  The bound counts the work the streams need (every
-proposal's five threefry blocks, every event's chain key, each source's
-first; each row written once) at ``utils.roofline``'s rates.  Alone, it
-prints one JSON line, also written to ``--out``, and exits 2 without a
-card."""
+The kernel's launch is timed by ``common.time_launches`` (10 streams
+after an untimed one), and so is the plain loop
+``streams._hawkes_stream_plain`` on the same keys (with the host's
+work), whose streams must equal ``streams.hawkes_stream``'s bit for bit.
+The bound counts the work the streams need (every proposal's five
+threefry blocks, every event's chain key, each source's first; each row
+written once) at ``utils.roofline``'s rates.  Alone, it prints one JSON
+line, also written to ``--out``, and exits 2 without a card."""
 
 import argparse
 import gc
@@ -26,7 +24,7 @@ import torch
 
 from redqueen_tpu_torch.ops import kernels, prng, streams, threefry
 from redqueen_tpu_torch.utils import roofline
-from .common import SLEEP_CYCLES, check
+from .common import check, time_launches
 
 LANES, FEEDS, T_END, CAP, REPS = 256, 1000, 100.0, 1024, 10
 L0, ALPHA, BETA = 0.5, 0.8, 2.0
@@ -77,49 +75,20 @@ def phase_hawkes_thin(dev):
                                           CAP)
 
     times, n, trunc, steps = launch()
-    # One untimed round of the loop below, after the earlier phases'
-    # cached blocks are handed back: its rows then come from the
-    # allocator's cache, and no timed launch waits for a cudaMalloc or a
-    # cudaFree (which would wait for the sleep).
+    # The earlier phases' cached blocks handed back first: the timed rows
+    # then come from the allocator's cache, and no timed launch waits for
+    # a cudaMalloc or a cudaFree (which would wait for the sleep).
     gc.collect()
     torch.cuda.empty_cache()
-    out = launch()
-    out = None
-    out = streams.hawkes_stream(key, l0, alpha, beta, 0.0, T_END, CAP)
-    torch.cuda.synchronize()
-    dev_ms, host_ms, wrap_ms = [], [], []
-    for _ in range(REPS):
-        out = None   # the allocator reuses the last rows' memory
-        z, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        z.record()
-        torch.cuda._sleep(SLEEP_CYCLES * 4)
-        a.record()
-        h0 = time.perf_counter()
-        out = launch()
-        host_ms.append((time.perf_counter() - h0) * 1e3)
-        b.record()
-        torch.cuda.synchronize()
-        check(host_ms[-1] < z.elapsed_time(a),
-              f"phase 14: the host took {host_ms[-1]:.3f} ms to launch, "
-              f"longer than the sleep")
-        dev_ms.append(a.elapsed_time(b))
-        out = None
-        a.record()
-        out = streams.hawkes_stream(key, l0, alpha, beta, 0.0, T_END, CAP)
-        b.record()
-        torch.cuda.synchronize()
-        wrap_ms.append(a.elapsed_time(b))
-    del out
+    dev_ms, host_ms, _ = time_launches(launch, reps=REPS)
     got = streams.hawkes_stream(key, l0, alpha, beta, 0.0, T_END, CAP)
     torch.cuda.synchronize()
     launches = kernels.LAUNCHES["hawkes_thin"]
-    check(launches == 2 * REPS + 4,
-          f"phase 14: {launches} kernel launches for {2 * REPS + 4} streams")
-    t0 = time.perf_counter()
-    want = streams._hawkes_stream_plain(key, l0, alpha, beta, 0.0, T_END,
-                                        CAP)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(launches == 2 * REPS + 3,
+          f"phase 14: {launches} kernel launches for {2 * REPS + 3} streams")
+    _, plain_ms, want = time_launches(
+        streams._hawkes_stream_plain, key, l0, alpha, beta, 0.0, T_END, CAP,
+        device_alone=False)
     check(kernels.LAUNCHES["hawkes_thin"] == launches,
           "phase 14: the plain loop launched the kernel")
     same = (torch.equal(got.times.view(torch.int32),
@@ -129,48 +98,24 @@ def phase_hawkes_thin(dev):
     err = max_abs_err(got, want)
     events = int(n.sum())
     b_ = bound(N, events, CAP)
-    dev_ms.sort()
-    wrap_ms.sort()
     res = {
         "card": torch.cuda.get_device_name(0), "sources": N, "cap": CAP,
         "events": events, "truncated": int(trunc.sum()),
         "steps": int(steps.item()), "ptxas": ptxas,
-        "ms_device": dev_ms, "ms_with_wrapper": wrap_ms,
-        "ms_device_median": dev_ms[len(dev_ms) // 2],
-        "ms_with_wrapper_median": wrap_ms[len(wrap_ms) // 2],
-        "host_launch_ms": max(host_ms), "plain_ms": plain_ms,
+        "ms_device": dev_ms, "ms_with_host": host_ms, "plain_ms": plain_ms,
         "bit_identical": bool(same), "max_abs_err": err,
-        "launches": launches, **b_,
-        "times_bound": dev_ms[len(dev_ms) // 2] / b_["bound_ms"],
+        "launches": launches, "bound": b_,
     }
     check(same, f"phase 14: the kernel's streams differ from the plain "
                 f"loop's (max_abs_err {err})")
     res["phase_s"] = time.perf_counter() - t_start
     print(f"phase 14 hawkes_thin: {N} sources x cap {CAP}, {events} events, "
-          f"{res['steps']} steps; {res['ms_device_median']:.3f} ms on the "
-          f"device, {res['ms_with_wrapper_median']:.3f} with the wrapper, "
-          f"bound {b_['bound_ms']:.3f} ({b_['bound_by']}); plain loop "
-          f"{plain_ms:.1f} ms, bit-identical; {res['phase_s']:.1f} s")
+          f"{res['steps']} steps; ms on the device "
+          f"{['%.3f' % x for x in dev_ms]}, with the host's work "
+          f"{['%.3f' % x for x in host_ms]}, bound {b_['bound_ms']:.3f} "
+          f"({b_['bound_by']}); plain loop {plain_ms[0]:.1f} ms, "
+          f"bit-identical; {res['phase_s']:.1f} s")
     return res
-
-
-def thin_row(ph14, star_launches):
-    """The kernel table's row of ``hawkes_thin``: phase 14's measurements,
-    and the launches of phase 7 (d)'s star batch beside phase 14's."""
-    return {
-        "name": "hawkes_thin", "route": "cuda",
-        "source": "redqueen_tpu_torch/csrc/hawkes_thin.cu",
-        "replaces": "redqueen_tpu/ops/streams.py:74 (lax.scan; no Pallas "
-                    "kernel)",
-        "launches": star_launches + ph14["launches"],
-        "launches_by_phase": {"7": star_launches, "14": ph14["launches"]},
-        "max_abs_err": ph14["max_abs_err"],
-        "ms": ph14["ms_device_median"],
-        "ms_with_host": ph14["ms_with_wrapper_median"],
-        "plain_ms": ph14["plain_ms"],
-        "bound_ms": ph14["bound_ms"], "bound_by": ph14["bound_by"],
-        "library_ms": None,
-    }
 
 
 def main(argv=None) -> int:

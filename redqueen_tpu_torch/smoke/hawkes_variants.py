@@ -13,10 +13,10 @@ random streams (``smoke.learn.pass_stream``): one of the corpus's shape
 (one chunk of 4,096 with 1,093 events, D = 3) and one at D = 128
 (300,000 events in chunks of 4,096), in both modes.  Prints the
 registers and stack frame of each build's phase-(C) kernels, and per
-stream and mode each build's mean and least
-milliseconds (CUDA events around the call) and its largest relative gap
-to the first build, or to ``OLD.cu`` (the one-launch entry without a
-workspace, as ``smoke.hawkes_compare`` builds it) where given."""
+stream and mode each build's mean and least milliseconds on the device
+alone (``common.time_launches``) and its largest relative gap to the
+first build, or to ``OLD.cu`` (the one-launch entry without a workspace,
+as ``smoke.hawkes_compare`` builds it) where given."""
 
 import argparse
 import ctypes
@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from redqueen_tpu_torch.ops import kernels
-from .common import check
+from .common import check, time_launches
 from .hawkes_compare import NAMES, build_old, old_pass
 from .learn import pass_inputs, pass_stream
 
@@ -101,21 +101,6 @@ def variant_pass(lib):
     return run
 
 
-def timed(fn, args, grad):
-    out = fn(*args, grad=grad)
-    torch.cuda.synchronize()
-    ms = []
-    for _ in range(REPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = fn(*args, grad=grad)
-        b.record()
-        torch.cuda.synchronize()
-        ms.append(a.elapsed_time(b))
-    return ms, out
-
-
 def gap(x, y):
     return max(float((u.double() - v.double()).abs().max())
                / max(float(v.double().abs().max()), 1e-30)
@@ -148,7 +133,8 @@ def main(argv=None):
                 ref = old(*args, grad=grad) if old else None
                 ms, gaps = {}, {}
                 for src in opts.sources + opts.sources[::-1]:
-                    t, out = timed(variant_pass(libs[src][0]), args, grad)
+                    t, _, out = time_launches(variant_pass(libs[src][0]),
+                                              *args, grad=grad, reps=REPS)
                     ms.setdefault(src, []).extend(t)
                     if ref is None:
                         ref = out

@@ -10,7 +10,7 @@ import torch
 import redqueen_tpu_torch as rt
 from redqueen_tpu_torch.ops import kernels
 from redqueen_tpu_torch.utils import roofline
-from .common import check, sync
+from .common import check, sync, time_launches
 
 
 # experiments/closed_loop.py:48-61 (copied: that file imports the JAX
@@ -63,7 +63,7 @@ RESPONSIBILITY_RTOL = 1e-4   # |sum s0 + sum S - n_events| / n_events
 # them: stats mode the decay (multiply, exp), Q (3), R (1), alpha_ij R_j,
 # the sum, S (divide, add) and W (multiply, divide, add); grad mode the
 # decay, R, alpha_ij R_j, the sum and g_alpha (multiply, add).
-OPS_PASS = {False: 13, True: 7}
+PASS_OPS = {False: 13, True: 7}
 
 
 def pass_stream(D, n, K, seed, degenerate=True):
@@ -135,7 +135,9 @@ def pass_cross(label, ch, mu, alpha, beta, dev, grad, reps=1):
     return {"max_abs_err": max(e[0] for e in err.values()),
             "max_rel_err": max(e[1] for e in err.values()),
             "health": hk.tolist(), "kernel_ms": times["kernel"],
-            "plain_ms": times["plain"]}
+            "plain_ms": times["plain"],
+            "shape": f"D = {ch.n_dims}, {ch.n_events} events in {C} chunks "
+                     f"of {K}, {'grad' if grad else 'stats'} mode"}
 
 
 def carry_cross(label, ch, beta, dev, grad, segments=None):
@@ -336,7 +338,7 @@ def corpus_bound(ch, grad=False):
     D = ch.n_dims
     in_bytes = C * K * (4 + 4 + 1 + 4) + (2 * D + D * D) * 4
     out_bytes = (C * (1 + 3 * D + D * D) + D) * 4
-    ops = ch.n_events * D * OPS_PASS[grad]
+    ops = ch.n_events * D * PASS_OPS[grad]
     return {"bytes": in_bytes + out_bytes, "ops": ops,
             **roofline.bound(in_bytes + out_bytes, ops)}
 
@@ -373,24 +375,6 @@ def pass_phase_ms(args, grad=False, reps=3):
         return None
     return {"ms": {k: v / reps / 1e3 for k, v in us.items()},
             "share": {k: v / total for k, v in us.items()}}
-
-
-def timed_pass(ch, mu, alpha, beta, dev, reps=10):
-    """Milliseconds of one kernel pass over ``ch`` on the device
-    (CUDA events around each launch), and the last pass's partials."""
-    from redqueen_tpu_torch.learn import loglik
-
-    args = pass_inputs(ch, mu, alpha, beta, dev)
-    ms = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = loglik.hawkes_pass(*args)
-        b.record()
-        torch.cuda.synchronize()
-        ms.append(a.elapsed_time(b))
-    return ms, out
 
 
 def responsibilities_identity(out, n_events):
@@ -443,18 +427,26 @@ def corpus_fit(dev, corpus=CORPUS, rows=CORPUS_ROWS,
 
 def corpus_pass_checks(ch, fit, dev, n_compare=8):
     """(c)'s pass checks at the fitted parameters: the kernel timed on
-    the whole corpus, the responsibilities identity, and the kernel
-    against its plain version on the first ``n_compare`` chunks."""
-    ms, out = timed_pass(ch, fit.mu, fit.alpha, fit.beta, dev)
+    the whole corpus (on the card; on the CPU its plain version runs once
+    untimed), the responsibilities identity, and the kernel against its
+    plain version on the first ``n_compare`` chunks."""
+    from redqueen_tpu_torch.learn import loglik
+
+    args = pass_inputs(ch, fit.mu, fit.alpha, fit.beta, dev)
+    if args[0].device.type == "cuda":
+        ms, host_ms, out = time_launches(loglik.hawkes_pass, *args,
+                                         reps=10)
+    else:
+        ms, host_ms, out = [], [], loglik.hawkes_pass(*args)
     total, gap = responsibilities_identity(out, ch.n_events)
-    phases = pass_phase_ms(pass_inputs(ch, fit.mu, fit.alpha, fit.beta,
-                                       dev))
+    phases = pass_phase_ms(args)
     head = ch._replace(dt=ch.dt[:n_compare], dims=ch.dims[:n_compare],
                        mask=ch.mask[:n_compare], tail=ch.tail[:n_compare],
                        n_events=int(ch.mask[:n_compare].sum()))
     cross = pass_cross(f"phase 9 (c) first {n_compare} chunks", head,
                        fit.mu, fit.alpha, fit.beta, dev, grad=False)
-    return {"kernel_ms": ms, "phases": phases, "responsibility_sum": total,
+    return {"kernel_ms": ms, "kernel_with_host_ms": host_ms,
+            "phases": phases, "responsibility_sum": total,
             "responsibility_gap": gap, "cross": cross,
             "bound": corpus_bound(ch)}
 

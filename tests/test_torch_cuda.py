@@ -133,6 +133,22 @@ def _assert_bit_identical(kern, plain):
         assert torch.equal(a, b), nm
 
 
+@pytest.mark.parametrize("stem", sorted(kernels._API))
+def test_each_library_loads_through_the_one_loader(card, stem):
+    """Built, loaded and declared by ``kernels._library``, its bounds
+    those of ``ops.kernels``, cached, and its CUDA errors named by its
+    own error string."""
+    lib = kernels._library(stem)
+    assert kernels._library(stem) is lib and kernels._LIBS[stem] is lib
+    api = kernels._API[stem]
+    for name, (_, want) in api["bounds"].items():
+        assert getattr(lib, name)() == want
+    assert getattr(lib, api["error"])(0) == b"no error"
+    kernels._raise_on(stem, 0, stem)
+    with pytest.raises(RuntimeError, match=r"CUDA error 1 \(invalid "):
+        kernels._raise_on(stem, 1, stem)
+
+
 @pytest.mark.parametrize("words,want", VECTORS)
 def test_device_threefry_random123_vectors(card, words, want):
     args = [ttf.to_bits32(torch.tensor([w])).to(card) for w in words]

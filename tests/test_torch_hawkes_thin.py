@@ -7,8 +7,9 @@ does not take before it loads any library; ``streams.hawkes_stream`` on a
 CPU key never touches ``ops.kernels``; a plain-PyTorch model of the
 kernel thread's in-place finish (an event at exactly ``t0`` dropped and
 the row closed up, ``truncated`` from the probe slot) equals ``_finish``
-of hand-built slot rows; and the smoke run's phase 14 computes its bound,
-its error and its row of the kernel table as it says.  Exact."""
+of hand-built slot rows; the smoke run's phase 14 computes its bound and
+its error as it says; and ``chip_smoke.kernel_rows`` builds the three rows
+of the kernel table with the same fields.  Exact."""
 
 import pytest
 import torch
@@ -26,7 +27,7 @@ def no_library(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a kernel library was loaded")
 
-    monkeypatch.setattr(kernels, "_load", refuse)
+    monkeypatch.setattr(kernels, "_library", refuse)
     monkeypatch.setattr(kernels, "build", refuse)
 
 
@@ -156,15 +157,77 @@ def test_the_max_abs_err_of_two_streams(case, err):
     assert hawkes_thin.max_abs_err(got, want) == err
 
 
-def test_the_kernel_row_counts_both_phases():
-    ph14 = {"launches": 24, "max_abs_err": 0.0, "ms_device_median": 1.35,
-            "ms_with_wrapper_median": 1.65, "plain_ms": 1300.0,
-            "bound_ms": 0.571, "bound_by": "operations"}
-    row = hawkes_thin.thin_row(ph14, 1)
-    assert row["name"] == "hawkes_thin" and row["library_ms"] is None
-    assert row["launches"] == 25
-    assert row["launches_by_phase"] == {"7": 1, "14": 24}
+# ---- the kernel table's rows (``chip_smoke.kernel_rows``) -----------------
+
+BOUND = {"bound_ms": 0.571, "bound_by": "operations", "ops_ms": 0.571}
+
+
+def _phases():
+    """The phases' results, as far as ``chip_smoke.kernel_rows`` reads
+    them (made-up figures)."""
+    return {
+        "headline": {
+            "B": 4, "launches": {"event_kernel": 3},
+            "kernel_ms_per_launch": [0.5, 0.3, 0.4],
+            "kernel_with_host_ms_per_launch": [0.6, 0.9, 0.7],
+            "plain_ms_per_launch": [2000.0, 1800.0, 2100.0],
+            "source_events": [23, 40, 41], "kind_is_opt": [True, False, False],
+            "adj": [[True, True], [True, False], [False, True]],
+            "parity": {"max_abs_err": 0.0}},
+        "runtime": {"launches": {"event_kernel": 38, "hawkes_pass": 419}},
+        "mesh": {"launches": {"event_kernel": 0, "hawkes_pass": 0}},
+        "learn": {
+            "launches": 440,
+            "parity": {"d5_stats": {"max_abs_err": 1e-7, "plain_ms": 102.5,
+                                    "shape": "D = 5, 3000 events"},
+                       "d64_grad": {"max_abs_err": 3e-6}},
+            "corpus": {"kernel_ms": [4.0, 3.9, 4.2, 4.1],
+                       "kernel_with_host_ms": [4.3, 4.2, 4.6, 4.5],
+                       "phases": {"share": {"A": 0.2, "B": 0.1, "C": 0.7}},
+                       "cross": {"max_abs_err": 2e-6}, "bound": BOUND}},
+        "serving": {"launches": 1}, "cluster": {"launches": 6},
+        "presets": {"config2": {"thin_launches": 1}},
+        "hawkes_thin": {"ms_device": [1.36, 1.35, 1.34], "plain_ms": [1300.0],
+                        "ms_with_host": [1.65, 1.7, 1.6], "launches": 23,
+                        "max_abs_err": 0.0, "bound": BOUND},
+    }
+
+
+# Each row's figures: (ms, ms_with_host, plain_ms, launches by phase,
+# max_abs_err, plain_shape, phase_share), from the made-up phases.
+ROWS_WANT = {
+    "event_kernel": (0.4, 0.7, 2000.0, {"5": 3, "12": 38, "13": 0}, 0.0,
+                     None, None),
+    "hawkes_pass": (4.05, 4.4, 102.5,
+                    {"9": 440, "10": 1, "11": 6, "12": 419, "13": 0}, 3e-6,
+                    "D = 5, 3000 events", {"A": 0.2, "B": 0.1, "C": 0.7}),
+    "hawkes_thin": (1.35, 1.65, 1300.0, {"7": 1, "14": 23}, 0.0, None,
+                    None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROWS_WANT))
+def test_the_kernel_row_counts_both_phases(name):
+    import chip_smoke
+
+    rows = chip_smoke.kernel_rows(_phases())
+    assert [r["name"] for r in rows] == ["event_kernel", "hawkes_pass",
+                                         "hawkes_thin"]
+    assert all(r.keys() == rows[0].keys() for r in rows)
+    row = next(r for r in rows if r["name"] == name)
+    ms, host, plain, by_phase, err, shape, share = ROWS_WANT[name]
     assert (row["ms"], row["ms_with_host"], row["plain_ms"]) == (
-        1.35, 1.65, 1300.0)
-    assert row["replaces"].startswith("redqueen_tpu/ops/streams.py:74 ")
-    assert row["source"] == "redqueen_tpu_torch/csrc/hawkes_thin.cu"
+        pytest.approx(ms), pytest.approx(host), plain)
+    assert row["launches_by_phase"] == by_phase
+    assert row["launches"] == sum(by_phase.values())
+    assert row["max_abs_err"] == err and row["route"] == "cuda"
+    assert row["plain_shape"] == shape and row["phase_share"] == share
+    assert row["source"] == f"redqueen_tpu_torch/csrc/{name}.cu"
+    assert row["library_ms"] is None
+    if name == "hawkes_thin":
+        assert row["replaces"].startswith("redqueen_tpu/ops/streams.py:74 ")
+    if name == "event_kernel":
+        assert row["bound_ms"] == chip_smoke.event_kernel_bound(
+            _phases()["headline"])["bound_ms"]
+    else:
+        assert (row["bound_ms"], row["bound_by"]) == (0.571, "operations")
