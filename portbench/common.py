@@ -10,8 +10,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-__all__ = ["seed_words", "rng", "Check", "Record", "nearest_rank",
-           "host_probe_ms", "GcPauses"]
+__all__ = ["seed_words", "rng", "later_rows", "Check", "Record",
+           "nearest_rank", "host_probe_ms", "GcPauses"]
+
+#: The stream of a run's seed (``rng(seed, LATER_STREAM)``) that draws
+#: which of the later batches' kept lanes the check judges.
+LATER_STREAM = 6
 
 
 def rng(seed: int, *path: int) -> np.random.Generator:
@@ -25,6 +29,26 @@ def seed_words(seed: int, *path: int, n: int = 1) -> np.ndarray:
     """``n`` uint32 words drawn for one use of a run's seed."""
     return np.random.SeedSequence(
         [int(seed) % 2 ** 64, *map(int, path)]).generate_state(n, np.uint32)
+
+
+def later_rows(events, cap: int, seed: int) -> List[np.ndarray]:
+    """Which lanes of the later batches the check judges.  ``events``
+    holds, for each later batch, the events of every lane it kept.  While
+    they number ``cap`` or fewer, every one, in order; past it ``cap`` of
+    them, a uniform sample drawn from ``seed`` alone that always holds
+    the lane of most events (the first such): each lane draws a key from
+    ``rng(seed, LATER_STREAM)`` and the ``cap`` least keys are judged,
+    the heaviest lane's key set below all.  Returns, for each batch, the
+    indices of its kept lanes to judge, ascending."""
+    sizes = [len(e) for e in events]
+    if sum(sizes) <= cap:
+        return [np.arange(n) for n in sizes]
+    keys = rng(seed, LATER_STREAM).random(sum(sizes))
+    keys[int(np.argmax(np.concatenate(events)))] = -1.0
+    pick = np.sort(np.argsort(keys, kind="stable")[:cap])
+    ends = np.cumsum(sizes)
+    return [pick[(pick >= e - n) & (pick < e)] - (e - n)
+            for n, e in zip(sizes, ends)]
 
 
 def nearest_rank(values, pct: float) -> float:

@@ -7,7 +7,10 @@ batch that starts before the deadline is finished and counted), each
 batch ending in a device synchronisation.  Every lane of the first
 batch is kept, and from every later batch a sample of lanes drawn from
 the seed and the lane with the most events; once the window has closed
-the reference judges them (see ``reference.sim``)."""
+the reference judges them (see ``reference.sim``): the first batch's
+lanes all, and at most the mix's ``check_later_max`` of the later
+batches' (``common.later_rows``: past it a sample drawn from the seed,
+with the lane of most events)."""
 
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from typing import Dict
 import numpy as np
 
 from .. import roofline
-from ..common import Record, rng, seed_words
+from ..common import Record, later_rows, rng, seed_words
 from ..reference import sim as ref
 from ..trace import DeviceTrace, Phases
 
@@ -285,6 +288,13 @@ def run(ctx) -> Record:
                                                   sim_phase[2]))
     kept = [system.to_host(k) for k in kept]
     system.release()
+    rows = later_rows([k[3] for k in kept[1:]],
+                      int(tr["check_later_max"]), ctx.seed)
+    rec.values["judged"] = [(b, k[0][r]) for b, (k, r)
+                            in enumerate(zip(kept[1:], rows), 1)]
+    rec.notes.update(later_lanes_seen=sum(len(k[0]) for k in kept[1:]),
+                     later_lanes_judged=sum(map(len, rows)))
+    kept[1:] = [tuple(x[r] for x in k) for k, r in zip(kept[1:], rows)]
 
     # The comparison with the reference, once the window has closed.  It
     # makes the draws of the engine the cell names, so a batch that went
@@ -308,4 +318,6 @@ def run(ctx) -> Record:
     rec.check("metrics_gap", float(np.max(np.maximum(
         np.abs(top1 - r_top1), np.abs(posts - r_posts)))), limits)
     rec.values["checked_lanes"] = int(len(nev))
+    rec.notes.update(checked_lanes=int(len(nev)),
+                     check_s=round(time.perf_counter() - t_end, 3))
     return rec

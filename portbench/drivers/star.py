@@ -10,9 +10,11 @@ in a device synchronisation; its events are every wall event and every
 post.  The lanes of the first batch are all kept, and from every later
 batch a sample drawn from the seed and the lane with the most wall
 events.  Once the window has closed the reference (``reference.star``)
-judges them: the later batches' lanes, then as many of the first
-batch's as the run's budget of seconds leaves room for, lane of most
-events first.
+judges them: the later batches' lanes, at most the mix's
+``check_later_max`` of them (``common.later_rows``: past it a sample
+drawn from the seed, with the lane of most wall events), then as many of
+the first batch's as the run's budget of seconds leaves room for, lane
+of most events first.
 
 The record carries the driver name ``"sim"``, so that the simulate
 cells' readers (``sim_events_per_s``, ``setup_s``, ``device_idle.sim``)
@@ -29,7 +31,7 @@ from typing import Dict
 import numpy as np
 
 from .. import roofline, roofline_star
-from ..common import GcPauses, Record, host_probe_ms, rng
+from ..common import GcPauses, Record, host_probe_ms, later_rows, rng
 from ..reference import star as ref
 from ..trace import DeviceTrace, Phases
 from .sim import lane_seeds
@@ -131,6 +133,11 @@ class Program:
         """Rows ``rows`` of what :meth:`keep` kept, on the host."""
         return {k: v[rows].cpu().numpy() for k, v in kept.items()}
 
+    @staticmethod
+    def wall_events(kept):
+        """The wall events of each lane :meth:`keep` kept, on the host."""
+        return kept["wall_n"].sum(-1).cpu().numpy()
+
     def totals(self, res):
         """The traced batch's wall events, posts and sources."""
         return {"wall_events": int(res.wall_n.sum()),
@@ -206,6 +213,10 @@ class Control:
         if "seeds" in kept:
             return self._run(kept["seeds"], kept["lanes"][rows])
         return {k: v[rows] for k, v in kept.items()}
+
+    @staticmethod
+    def wall_events(kept):
+        return kept["wall_n"].sum(-1)
 
     def totals(self, res):
         return None
@@ -364,15 +375,17 @@ def run(ctx) -> Record:
             k: round(v, 6) for k, v in rec.values["stage_s"].items()})
 
     # The comparison with the reference, once the window has closed: the
-    # later batches' lanes first, then the first batch's in blocks while
-    # the run's budget lasts.
+    # later batches' lanes first, at most check_later_max of them, then
+    # the first batch's in blocks while the run's budget lasts.
     limits = tr["limits"]
     budget_end = ctx.t_process + RUN_BUDGET_S
     gaps = {"wall_gap": [], "post_gap": [], "metrics_gap": []}
     state = {"lanes": 0, "ties": 0, "flip": 0.0}
+    judged = []   # (batch, its lanes judged), in the order judged
 
-    def judge(k, seeds, rows):
+    def judge(b, k, seeds, rows):
         got = system.lanes_to_host(k, rows)
+        judged.append((b, got["lanes"]))
         s = seeds[np.asarray(got["lanes"])]
         wg, ties, flip = ref.check_walls(star, s, got["wall_times"],
                                          got["wall_n"])
@@ -390,18 +403,26 @@ def run(ctx) -> Record:
         state["ties"] += ties
         state["flip"] = max(state["flip"], flip)
 
-    for k, seeds in zip(kept[1:], seeds_kept[1:]):
-        judge(k, seeds, slice(None))
+    lane_events = [system.wall_events(k) for k in kept[1:]]
+    rows = later_rows(lane_events, int(tr["check_later_max"]), ctx.seed)
+    for b, r in enumerate(rows, 1):
+        if len(r):
+            judge(b, kept[b], seeds_kept[b], r)
+    later = state["lanes"]
     n_first = len(kept[0]["lanes"])
     done = 0
     while done < n_first and (done == 0 or time.perf_counter() < budget_end):
-        judge(kept[0], seeds_kept[0], slice(done, done + CHECK_BLOCK))
+        judge(0, kept[0], seeds_kept[0], slice(done, done + CHECK_BLOCK))
         done += CHECK_BLOCK
+    check_s = time.perf_counter() - t_end
     system.release()
     for name, g in gaps.items():
         rec.check(name, float(np.concatenate(g).max()), limits)
-    rec.values["checked_lanes"] = state["lanes"]
+    rec.values.update(checked_lanes=state["lanes"], judged=judged)
     rec.notes.update(checked_lanes=state["lanes"],
+                     later_lanes_seen=sum(map(len, lane_events)),
+                     later_lanes_judged=later,
+                     check_s=round(check_s, 3),
                      first_batch_checked=min(done, n_first),
                      tied_proposals=state["ties"],
                      flip_margin=state["flip"])
